@@ -13,8 +13,11 @@ prints no result line):
    and ptxas' register report;
 3. the fused iSTFT kernel against its plain PyTorch version on the card at
    the six branch shapes of mel_24k_base and mel_44k_128band_512x_base
-   (batch 16) and at edge shapes, with its time, the plain version's, the
-   time of `torch.istft` (a yardstick the port never calls) and the bound;
+   (batch 16) and at edge shapes (among them spectra with nonzero imaginary
+   parts at DC and Nyquist, mel_24k_tiny's (64, 32) branch and a 60 s clip),
+   with its time, the plain version's, the time of `torch.istft` (a
+   yardstick the port never calls), the bound, and the timing floor (what
+   the same timing reads for a one-element `add_`);
 4. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
    mel at 1, 2 and 4 Euler steps, with the launch count of the kernel over
    that run, then the per-call time and x-real-time over timed calls, and
@@ -63,13 +66,20 @@ MAIN_SHAPES = [
     (512, 256, 16, 175, 44544),
     (256, 128, 16, 349, 44544),
 ]
+# (n_fft, hop, batch, t_f, length, real_edges): real_edges False gives the
+# DC and Nyquist bins nonzero imaginary parts, which the iSTFT ignores
 EDGE_SHAPES = [
-    (512, 256, 3, 95, 24064),  # odd batch
-    (256, 128, 16, 189, 25000),  # length above the default: zero pad
-    (128, 64, 5, 377, 20000),  # length below the default: trim
-    (512, 256, 4, 2, 256),  # T_f <= k
-    (1024, 256, 2, 3, 512),  # k = 4, T_f <= k
-    (128, 64, 1, 1, 64),  # one frame: the output is all pad
+    (512, 256, 3, 95, 24064, True),  # odd batch
+    (256, 128, 16, 189, 25000, True),  # length above the default: zero pad
+    (128, 64, 5, 377, 20000, True),  # length below the default: trim
+    (512, 256, 4, 2, 256, True),  # T_f <= k
+    (1024, 256, 2, 3, 512, True),  # k = 4, T_f <= k
+    (128, 64, 1, 1, 64, True),  # one frame: the output is all pad
+    (512, 256, 16, 95, 24064, False),  # a main shape, imaginary parts at DC and Nyquist
+    (64, 32, 16, 189, 6016, False),  # mel_24k_tiny's (64, 32) branch
+    (512, 256, 1, 5626, 1440000, False),  # a 60 s clip at 24 kHz, batch 1
+    (1024, 256, 4, 40, 9984, False),  # k = 4, T_f above k
+    (1024, 64, 2, 40, 2560, False),  # k = 16: tiles take their frames in chunks
 ]
 
 
@@ -104,29 +114,33 @@ def istft_bound_ms(n_fft, batch, t_f, length):
     """(bytes_ms, ops_ms, matmul_ops_ms) of the iSTFT on this card, at the
     data-sheet rates. The bound is the larger of the first two.
 
-    bytes: the spectrogram read once, the waveform written once and the two
-    window-folded iDFT matrices. ops: the fewest the function needs, an
+    bytes: the spectrogram read once and the waveform written once (the
+    kernel's twiddle and window tables are constants of n_fft, not inputs
+    of the function). ops: the fewest the function needs, an
     inverse real FFT per frame (2.5 N log2 N FLOP), the window multiply and
     the overlap-add (2 N per frame) and the envelope divide (one per output
-    sample). matmul_ops: the 2 * B * T_f * 2F * N FLOP of the matmul form the
-    kernel computes, which is no bound: an FFT does the same work in far fewer.
+    sample). matmul_ops: the 2 * B * T_f * 2F * N FLOP of the matmul form
+    that the first version of the kernel computed, which is no bound: an FFT
+    does the same work in far fewer.
     """
     n_freq = n_fft // 2 + 1
     frames = batch * t_f
-    bytes_ = frames * n_freq * 8 + batch * length * 4 + 2 * n_freq * n_fft * 4
+    bytes_ = frames * n_freq * 8 + batch * length * 4
     flop = frames * (2.5 * n_fft * math.log2(n_fft) + 2 * n_fft) + batch * length
     matmul_flop = 2 * frames * 2 * n_freq * n_fft
     return tuple(x * 1e3 for x in (
         bytes_ / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S, matmul_flop / FP32_FLOP_PER_S))
 
 
-def check_istft_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
+def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: bool) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(n_fft + t_f + batch)
     n_freq = n_fft // 2 + 1
     imag = torch.randn(batch, t_f, n_freq, generator=gen, device="cuda")
     # the spectrum of a real signal has no imaginary part at DC and Nyquist;
-    # the port's iSTFT ignores it there, cuFFT's inverse (torch.istft) does not
-    imag[..., 0] = imag[..., -1] = 0.0
+    # the port's iSTFT ignores it there, cuFFT's inverse (torch.istft) does
+    # not, so the timed rows zero it
+    if real_edges:
+        imag[..., 0] = imag[..., -1] = 0.0
     spec = torch.complex(torch.randn(batch, t_f, n_freq, generator=gen, device="cuda"), imag)
     ref = fused.istft_plain(spec, n_fft, hop, length=length)
     out = fused.istft_kernel(spec, n_fft, hop, length=length)
@@ -135,8 +149,12 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
         raise AssertionError(f"kernel output {tuple(out.shape)} not finite or not {(batch, length)}")
     abs_err = (out - ref).abs().max().item()
     rel_err = abs_err / max(ref.abs().max().item(), 1e-30)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused.tile_plan(batch, t_f, n_fft, hop, length, sm_count)
     row = dict(n_fft=n_fft, hop=hop, batch=batch, t_f=t_f, length=length,
-               max_abs_err=abs_err, max_rel_err=rel_err)
+               real_edges=real_edges, max_abs_err=abs_err, max_rel_err=rel_err,
+               rows_per_tile=plan.rows_per_tile, blocks=batch * plan.tiles,
+               smem_bytes=plan.smem_bytes)
     if rel_err > ISTFT_TOL:
         raise AssertionError(f"fused iSTFT disagrees with its plain version: {row}")
     if timed:
@@ -280,6 +298,9 @@ def profile_one_call(card: str, model, mel, wall_ms: float):
 
 
 def main() -> int:
+    if sys.argv[1:]:
+        print("usage: python3 chip_smoke.py", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs on the GPU only",
               file=sys.stderr)
@@ -298,12 +319,16 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    print(f"bound_ms = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, FFT-form FLOP / "
+    print(f"bound_ms = max(spectrogram and waveform bytes / {HBM_BYTES_PER_S:.3g} B/s, FFT-form FLOP / "
           f"{FP32_FLOP_PER_S:.3g} FLOP/s): H100 SXM data sheet, HBM3 and FP32 on CUDA cores; "
           "matmul_ops_ms is the matmul form's FLOP at the same rate, not a bound")
+    # what the timing harness reads for a kernel that does nearly nothing
+    one = torch.zeros(1, device="cuda")
+    floor_ms = statistics.median(device_ms(lambda: one.add_(1)))
+    print(f"timing floor: a one-element add_ reads {floor_ms:.6f} ms")
     shapes = []
     for shape in MAIN_SHAPES:
-        shapes.append(check_istft_shape(*shape, timed=True))
+        shapes.append(check_istft_shape(*shape, real_edges=True, timed=True))
         print("istft shape " + json.dumps(shapes[-1]))
     for shape in EDGE_SHAPES:
         print("istft edge " + json.dumps(check_istft_shape(*shape, timed=False)))
@@ -336,6 +361,7 @@ def main() -> int:
                      >= sum(s["bytes_ms"] for s in step) else "bytes"),
         "matmul_ops_ms": sum(s["matmul_ops_ms"] for s in step),
         "library_ms": sum(s["library_ms"] for s in step),
+        "floor_ms": floor_ms,
         "per": "one mel_24k_base Euler step at batch 16: the sum over its three branch shapes",
         "shapes": shapes,
     }]}))

@@ -1,235 +1,279 @@
 // Fused iSTFT for Hopper (sm_90a): complex spectrogram -> waveform in one
 // launch, with the frames never written to device memory.
 //
-// Replaces the Pallas TPU kernel `_istft_kernel` / `_istft_pallas_impl` in
-// flow2gan_tpu/ops/pallas_istft.py. Computes, for each batch row b,
+// Replaces the Pallas TPU kernel `_istft_pallas_impl`
+// (flow2gan_tpu/ops/pallas_istft.py:240, body `_istft_kernel` at :78).
+// Computes, for each batch entry b, the function of ops/stft.py `istft`:
 //
 //   out[b, n] = ola[b, n + n_fft/2] / env[n]     for n < out_len
 //   out[b, n] = 0                                for out_len <= n < length
 //
-// where ola is the overlap-add of the frames Re @ Aw + Im @ Bw (Aw, Bw the
-// onesided inverse-DFT matrices with the periodic Hann window folded in),
-// env the precomputed squared-window envelope, and
+// where ola is the overlap-add at `hop` of the frames w[n] * irfft(X)[n]
+// (periodic Hann window w; the imaginary parts of the DC and Nyquist bins
+// ignored, as the plain version's iDFT matrices ignore them), env the same
+// float32 squared-window envelope the plain version divides by, and
 // out_len = min(length, (T_f - 1) * hop).
 //
-// Design: output-stationary. With k = n_fft / hop, the OLA signal split into
-// hop-wide rows is
+// The inverse real DFT of a frame (N = n_fft, M = N/2) is one M-point
+// complex FFT. The Hermitian half-spectrum X[0..M] is packed into
 //
-//   ola_row[t] = sum_{j<k} spec[t-j] (2F interleaved re/im) @ W[j]     (hop)
+//   Z[m] = (X[m] + conj X[M-m]) + i e^{+2 pi i m/N} (X[m] - conj X[M-m]),
 //
-// where W[j] (2F, hop) holds columns [j*hop, (j+1)*hop) of Aw and Bw with the
-// rows interleaved to match view_as_real(spec). That is one GEMM with
-// M = output hop-rows, N = hop and K = k * 2F, whose A operand is the
-// spectrogram read at k row shifts. Each block owns a BM x BN tile of output
-// rows and columns and sums all k shifts itself: no halo between tiles, no
-// atomics, so the result is deterministic. The centre trim, the envelope
-// divide and the zero pad to `length` happen in the store.
+// whose unnormalised inverse FFT z gives x[2n] = Re z[n] / N and
+// x[2n+1] = Im z[n] / N. So the complex buffer, read as floats, is the frame
+// in order, and 1/N rides in the window table. The FFT is Stockham in shared
+// memory, ping-ponging between two buffers with one barrier per pass: a
+// first pass of radix 2 where log2 M is odd, else radix 4, with the pack
+// fused into it, then radix-4 passes (5 passes at N = 1024, 3 at N = 128).
+// Twiddles come from a table of cos/sin(2 pi j/N), j < N/2, computed in
+// float64 on the host (the other half circle by negation, which is exact),
+// not from __sinf/__cosf.
 //
-// What bounds it on this card: the matmul formulation does 2 * B * T_f * 2F *
-// n_fft FLOP against B * T_f * F * 8 + B * length * 4 bytes, about 140 FLOP
-// per byte at (512, 256), so with float32 accumulation on the CUDA cores
-// (no TF32, to stay near 1e-6 of the float32 reference) the kernel is bound
-// by operations, not bytes. The design keeps the operations dense: a
-// register-blocked 4x8 outer product per thread from a cp.async pipeline of
-// shared-memory tiles, with the frames, the overlap-add partial sums and the
-// untrimmed signal all staying on chip.
+// Tiles: block (b, tile) owns `rows_per_tile` (R) consecutive hop-wide rows
+// of the overlap-added signal and transforms the R + k - 1 frames that
+// overlap them (k = N / hop), so a halo frame is transformed by both tiles
+// that need it, at (k - 1) / R extra work. Each output sums its k frame
+// contributions in a fixed order, from the latest frame to the earliest,
+// with no atomics, so the result is deterministic, and is written exactly
+// once, with coalesced stores, zero pad included. Where R + k - 1 frames do
+// not fit in shared memory (k above 8192 / N), the tile takes its frames in
+// chunks and keeps its partial sums in shared memory. The wrapper
+// (ops/fused_istft.py `tile_plan`) picks R; batch entries times tiles lie on
+// gridDim.x.
+//
+// What bounds it on this card: bytes. The FFT form does about 2.5 N log2 N
+// + 2 N FLOP per frame, under 0.6 us at the FP32 peak at (1024, 512), batch
+// 16, while reading the spectrogram once (8 (N/2 + 1) bytes per frame) and
+// writing the waveform once take 2.6 us at 3.35 TB/s. At the main-path sizes
+// a block's time is the latency of its chain of loads, passes and barriers.
+// The design issues all of a block's loads at once: the chunk's frames, which
+// lie back to back in device memory, the tables and the tile's slice of the
+// envelope are copied to shared memory by cp.async in 8-byte (4-byte for the
+// envelope) pieces, since a frame of F = N/2 + 1 complex values starts
+// 8-byte but not always 16-byte aligned. It keeps every frame on chip and
+// runs about four blocks per SM, so one block's waits overlap another's work.
+//
+// Why not the matmul form: the first CUDA version of this kernel computed
+// each output hop-row as sum_j view_as_real(spec)[t - j] @ W[j], a GEMM with
+// K = k * 2F, which does 13x (N 128) to 75x (N 1024) the FFT form's FLOP.
+// After six tuning rounds it took 0.0561 ms at (512, 256) and 0.1422 ms at
+// (1024, 512), batch 16, on an H100 80GB HBM3 at 700 W: 17-55x its bytes
+// bound, and at (1024, 512) no faster than the plain version or torch.istft.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int BM = 32;      // output hop-rows per block (batch rows flattened)
-constexpr int BN = 64;      // output columns (offsets within a hop) per block
-constexpr int BK = 8;       // reduction slice per pipeline stage
-constexpr int STAGES = 3;   // slices in flight between device memory and compute
-constexpr int KSPLIT = 4;   // thread groups of a block that share out the K slices
-constexpr int TX = BN / 8, TY = BM / 4;  // threads of a group, each 4 rows x 8 columns
-constexpr int GROUP = TX * TY;           // 64
-constexpr int THREADS = KSPLIT * GROUP;  // 256
-constexpr int A_PER = BM * BK / GROUP;        // A-tile floats each thread copies
-constexpr int W_PER = BK * BN / 4 / GROUP;    // W-tile float4s each thread copies
-constexpr int APAD = 4;  // keeps the transposed A tile 16-byte aligned
-constexpr int A_TILE = BK * (BM + APAD), W_TILE = BK * BN;  // floats per stage
-constexpr int SMEM_FLOATS = KSPLIT * STAGES * (A_TILE + W_TILE);
-static_assert(SMEM_FLOATS >= (KSPLIT - 1) * BM * BN, "partial tiles reuse the ring");
+constexpr int THREADS = 256;
+constexpr int SMEM_LIMIT = 227 * 1024;  // dynamic shared memory a block may take
 
-// Asynchronous copies into shared memory; an invalid source is read as zero
-// bytes, which zero-fills the destination.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
-               "r"(valid ? 4 : 0));
+__device__ __forceinline__ float2 operator+(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
-               "r"(valid ? 16 : 0));
+__device__ __forceinline__ float2 operator-(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
 
-// Rows of all batch entries are flattened into one M dimension of
-// batch * rows output hop-rows, so small batches and short clips still give
-// the grid enough blocks. The K loop runs over (j, 2F) in BK slices: the
-// block's KSPLIT thread groups take turns at the slices (the problem has few
-// output tiles and a long K, so this multiplies the warps in flight), each
-// keeping STAGES slices in a ring of shared-memory buffers filled by
-// cp.async. A thread's 8 columns are two runs of 4, 32 apart, so a warp's
-// 16-byte shared-memory reads have no bank conflicts. The groups' partial
-// tiles are summed in a fixed order at the end.
+// Asynchronous copies of 4 and 8 bytes from device to shared memory.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(saddr), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(saddr), "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// e^{2 pi i j / N} for 0 <= j < N from the half-circle table tw[j], j < M:
+// e^{i (theta + pi)} = -e^{i theta}, exact in float32.
+__device__ __forceinline__ float2 twiddle(const float2* tw, int j, int m_pts) {
+  const float2 w = tw[j & (m_pts - 1)];
+  return (j & m_pts) ? make_float2(-w.x, -w.y) : w;
+}
+
+// Z[m] of the pack above from the frame x = X[0..M], w = e^{+2 pi i m/N};
+// the imaginary parts of X[0] and X[M] are dropped before the pack, which at
+// m = 0 reads both.
+__device__ __forceinline__ float2 hermitian_pack(const float2* x, int m, int m_pts, float2 w) {
+  float2 a = x[m], c = x[m_pts - m];
+  if (m == 0) a.y = c.y = 0.f;
+  c.y = -c.y;
+  const float2 s = a + c, d = a - c;
+  return make_float2(s.x - (w.x * d.y + w.y * d.x), s.y + (w.x * d.x - w.y * d.y));
+}
+
+// Stockham butterflies of an inverse FFT at stride s, with base = pp * s:
+// output j of the r-point inverse DFT of the inputs goes to y[j * s],
+// times e^{+2 pi i j pp s / M} = twiddle(2 j base).
+__device__ __forceinline__ void radix2(float2* y, int s, int base, const float2* tw, int m_pts,
+                                       float2 a, float2 b) {
+  y[0] = a + b;
+  y[s] = cmul(a - b, twiddle(tw, 2 * base, m_pts));
+}
+__device__ __forceinline__ void radix4(float2* y, int s, int base, const float2* tw, int m_pts,
+                                       float2 a, float2 b, float2 c, float2 d) {
+  const float2 apc = a + c, amc = a - c, bpd = b + d, bmd = b - d;
+  const float2 ibmd = make_float2(-bmd.y, bmd.x);  // i (b - d)
+  y[0] = apc + bpd;
+  y[s] = cmul(amc + ibmd, twiddle(tw, 2 * base, m_pts));
+  y[2 * s] = cmul(apc - bpd, twiddle(tw, 4 * base, m_pts));
+  y[3 * s] = cmul(amc - ibmd, twiddle(tw, 6 * base, m_pts));
+}
+
 __global__ void __launch_bounds__(THREADS)
-fused_istft_kernel(const float* __restrict__ spec,  // (B, T_f, 2F)
-                   const float* __restrict__ w,     // (k, 2F, w_stride)
-                   const float* __restrict__ env,   // (out_len,) at least
-                   float* __restrict__ out,         // (B, length)
-                   int t_f, int two_f, int hop, int w_stride, int k, int half,
-                   int length, int out_len, int t_lo, int rows, int total_rows) {
-  __shared__ __align__(16) float smem[SMEM_FLOATS];
-  const int g = threadIdx.x / GROUP;  // this thread's K group
-  const int tid = threadIdx.x % GROUP;
-  const int tx = tid % TX, ty = tid / TX;
-  const int grow0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int kk_a = tid % BK;  // the A column this thread copies (GROUP % BK == 0)
-  // this group's ring: As[stage][kk][row], then Ws[stage][kk][col]
-  float* as = smem + g * STAGES * A_TILE;
-  float* ws = smem + KSPLIT * STAGES * A_TILE + g * STAGES * W_TILE;
+fused_istft_kernel(const float2* __restrict__ spec,   // (B, T_f, M + 1)
+                   const float* __restrict__ tables,  // twiddles (M, 2), then window (N)
+                   const float* __restrict__ env,     // (out_len,) at least
+                   float* __restrict__ out,           // (B, length)
+                   int t_f, int log2m, int log2hop, int length, int out_len, int t_lo,
+                   int tiles, int rows_per_tile, int frames_per_chunk) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int m_pts = 1 << log2m, n_fft = 2 * m_pts, quarter_m = m_pts / 4;
+  const int hop = 1 << log2hop, k = n_fft >> log2hop;
+  const int tile_len = rows_per_tile * hop;
+  // the layout whose size the wrapper computes (TilePlan.smem_bytes)
+  float2* tw = smem;                                  // M
+  float2* buf0 = tw + m_pts;                          // frames_per_chunk * M
+  float2* buf1 = buf0 + frames_per_chunk * m_pts;     // frames_per_chunk * (M + 1)
+  float* win = reinterpret_cast<float*>(buf1 + frames_per_chunk * (m_pts + 1));  // N
+  float* env_tile = win + n_fft;                      // tile_len
+  float* acc = env_tile + tile_len;                   // tile_len, when chunked
 
-  // the rows this thread copies into the A tile: offset of its batch entry
-  // and its hop-row t (a row past the end gets a t that matches no frame)
-  size_t a_off[A_PER];
-  int a_t[A_PER];
-#pragma unroll
-  for (int s = 0; s < A_PER; ++s) {
-    const int gr = grow0 + (tid + s * GROUP) / BK;
-    a_off[s] = gr < total_rows ? (size_t)(gr / rows) * t_f * two_f : 0;
-    a_t[s] = gr < total_rows ? t_lo + gr % rows : -(1 << 30);
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int t0 = t_lo + tile * rows_per_tile;
+  const long long idx0 = (long long)t0 * hop - m_pts;  // output index of the tile's first sample
+  const int fa = max(t0 - k + 1, 0), fb = min(t0 + rows_per_tile, t_f);  // frames [fa, fb)
+  const int n_chunks = max((fb - fa + frames_per_chunk - 1) / frames_per_chunk, 1);
+  const float2* spec_b = spec + (size_t)b * t_f * (m_pts + 1);
+  float* out_b = out + (size_t)b * length;
+
+  // the tables and the tile's slice of the envelope, in flight with the
+  // first chunk's spectrum
+  for (int i = threadIdx.x; i < m_pts; i += THREADS) {
+    cp_async8(tw + i, tables + 2 * i);
+    cp_async8(win + 2 * i, tables + n_fft + 2 * i);
   }
+  for (int e = threadIdx.x; e < tile_len; e += THREADS)
+    if (idx0 + e >= 0 && idx0 + e < out_len) cp_async4(env_tile + e, env + idx0 + e);
 
-  const int k_slices = (two_f + BK - 1) / BK;
-  const int n_steps = k * k_slices;                     // K slices in all
-  const int n_iters = (n_steps + KSPLIT - 1) / KSPLIT;  // slices per group
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int hi = fb - ci * frames_per_chunk;  // this chunk's frames [lo, hi)
+    const int lo = max(hi - frames_per_chunk, fa);
+    const int nc = max(hi - lo, 0);
 
-  // copy slice `step` into this group's ring at `stage`
-  auto issue = [&](int step, int stage) {
-    const int j = step / k_slices, k0 = (step % k_slices) * BK;
-    const int q = k0 + kk_a;
-#pragma unroll
-    for (int s = 0; s < A_PER; ++s) {
-      const int f = a_t[s] - j;
-      const bool ok = f >= 0 && f < t_f && q < two_f;
-      cp_async4(as + stage * A_TILE + kk_a * (BM + APAD) + (tid + s * GROUP) / BK,
-                ok ? spec + a_off[s] + (size_t)f * two_f + q : spec, ok);
-    }
-    const float* wj = w + (size_t)j * two_f * w_stride;
-#pragma unroll
-    for (int s = 0; s < W_PER; ++s) {
-      const int i = (tid + s * GROUP) * 4;  // first of 4 columns
-      const int qw = k0 + i / BN, col = col0 + i % BN;
-      const bool ok = qw < two_f && col < w_stride;
-      cp_async16(ws + stage * W_TILE + i, ok ? wj + (size_t)qw * w_stride + col : w, ok);
-    }
-  };
+    // the chunk's frames lie back to back in device memory: copy them to
+    // buf1 as they are, 8 bytes a thread (frame starts are 8-byte aligned)
+    const float2* chunk = spec_b + (size_t)lo * (m_pts + 1);
+    for (int i = threadIdx.x; i < nc * (m_pts + 1); i += THREADS) cp_async8(buf1 + i, chunk + i);
+    cp_async_wait_all();
+    __syncthreads();
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s * KSPLIT + g < n_steps) issue(s * KSPLIT + g, s);
-    cp_async_commit();
-  }
-
-  float acc[4][8] = {};
-  for (int it = 0; it < n_iters; ++it) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of slice `it` have landed
-    __syncthreads();              // everyone's have, and slice `it - 1` is consumed
-    const int next = (it + STAGES - 1) * KSPLIT + g;
-    if (next < n_steps) issue(next, (it + STAGES - 1) % STAGES);
-    cp_async_commit();
-    if (it * KSPLIT + g >= n_steps) continue;
-    const float* a_s = as + (it % STAGES) * A_TILE + ty * 4;
-    const float* w_s = ws + (it % STAGES) * W_TILE + tx * 4;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(a_s + kk * (BM + APAD));
-      const float4 c0 = *reinterpret_cast<const float4*>(w_s + kk * BN);
-      const float4 c1 = *reinterpret_cast<const float4*>(w_s + kk * BN + 32);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[m][n] = fmaf(av[m], cv[n], acc[m][n]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // groups 1.. hand their partial tiles to group 0 through the ring
-  if (g > 0) {
-    float* part = smem + (g - 1) * BM * BN;
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float4*>(&part[(ty * 4 + m) * BN + tx * 4 + 32 * h]) =
-            make_float4(acc[m][4 * h], acc[m][4 * h + 1], acc[m][4 * h + 2], acc[m][4 * h + 3]);
-  }
-  __syncthreads();
-  if (g > 0) return;
-#pragma unroll
-  for (int other = 0; other < KSPLIT - 1; ++other)
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 p = *reinterpret_cast<const float4*>(
-            &smem[other * BM * BN + (ty * 4 + m) * BN + tx * 4 + 32 * h]);
-        acc[m][4 * h] += p.x;
-        acc[m][4 * h + 1] += p.y;
-        acc[m][4 * h + 2] += p.z;
-        acc[m][4 * h + 3] += p.w;
+    // pass 0 at stride 1 on the packed spectrum, buf1 -> buf0: radix 4, or
+    // radix 2 where log2 M is odd; then radix-4 passes to the end. A pass
+    // takes its r inputs at stride M / r and writes in Stockham order.
+    float2* src = buf1;
+    float2* dst = buf0;
+    int s = 1;
+    if (log2m & 1) {
+      const int half_m = m_pts / 2;
+      for (int i = threadIdx.x; i < nc * half_m; i += THREADS) {
+        const int lf = i >> (log2m - 1), r = i & (half_m - 1);
+        const float2* x = src + lf * (m_pts + 1);
+        radix2(dst + lf * m_pts + 2 * r, 1, r, tw, m_pts,
+               hermitian_pack(x, r, m_pts, tw[r]),
+               hermitian_pack(x, r + half_m, m_pts, tw[r + half_m]));
       }
-
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int gr = grow0 + ty * 4 + m;
-    if (gr >= total_rows) continue;
-    float* out_b = out + (size_t)(gr / rows) * length;
-    const long long t = t_lo + gr % rows;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int c = col0 + tx * 4 + (n % 4) + 32 * (n / 4);
-      if (c >= hop) continue;
-      const long long idx = t * hop + c - half;  // index into the trimmed output
-      if (idx < 0 || idx >= length) continue;
-      out_b[idx] = idx < out_len ? acc[m][n] / env[idx] : 0.f;
+      s = 2;
+    } else {
+      for (int i = threadIdx.x; i < nc * quarter_m; i += THREADS) {
+        const int lf = i >> (log2m - 2), r = i & (quarter_m - 1);
+        const float2* x = src + lf * (m_pts + 1);
+        radix4(dst + lf * m_pts + 4 * r, 1, r, tw, m_pts,
+               hermitian_pack(x, r, m_pts, tw[r]),
+               hermitian_pack(x, r + quarter_m, m_pts, tw[r + quarter_m]),
+               hermitian_pack(x, r + 2 * quarter_m, m_pts, tw[r + 2 * quarter_m]),
+               hermitian_pack(x, r + 3 * quarter_m, m_pts, tw[r + 3 * quarter_m]));
+      }
+      s = 4;
     }
+    __syncthreads();
+    for (; s < m_pts; s *= 4) {
+      float2* done = dst;
+      dst = src;
+      src = done;
+      for (int i = threadIdx.x; i < nc * quarter_m; i += THREADS) {
+        const int lf = i >> (log2m - 2), r = i & (quarter_m - 1);
+        const int base = r & ~(s - 1);  // pp * s
+        const float2* x = src + lf * m_pts + r;
+        radix4(dst + lf * m_pts + 4 * base + (r - base), s, base, tw, m_pts,
+               x[0], x[quarter_m], x[2 * quarter_m], x[3 * quarter_m]);
+      }
+      __syncthreads();
+    }
+
+    // overlap-add: row t, column c sums window * frame over frames
+    // f = t - j, j = 0 .. k-1, in this chunk; the last chunk stores
+    const float* frames = reinterpret_cast<const float*>(dst);  // (chunk, N): x in order
+    const bool last = ci == n_chunks - 1;
+    for (int e = threadIdx.x; e < tile_len; e += THREADS) {
+      const int r = e >> log2hop, c = e & (hop - 1);
+      const int t = t0 + r;
+      float v = ci == 0 ? 0.f : acc[e];
+      for (int j = 0; j < k; ++j) {
+        const int f = t - j;
+        if (f >= lo && f < hi)
+          v = fmaf(win[j * hop + c], frames[(f - lo) * n_fft + j * hop + c], v);
+      }
+      if (!last) {
+        acc[e] = v;
+        continue;
+      }
+      const long long idx = idx0 + e;  // into the trimmed output
+      if (idx >= 0 && idx < length) out_b[idx] = idx < out_len ? v / env_tile[e] : 0.f;
+    }
+    if (!last) __syncthreads();  // the next chunk overwrites the buffers
   }
+}
+
+int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
 }
 
 }  // namespace
 
-// spec: (batch, t_f, n_freq) complex64 viewed as interleaved float32.
-// w: (n_fft / hop, 2 * n_freq, hop rounded up to a multiple of 4, zero-padded).
+// spec: (batch, t_f, n_fft/2 + 1) complex64 viewed as interleaved float32.
+// tables: twiddles (n_fft/2, 2), then the window (n_fft), float32.
 // env: ((t_f - 1) * hop,). out: (batch, length).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int fused_istft_launch(const float* spec, const float* w,
-                                  const float* env, float* out, int batch,
-                                  int t_f, int n_freq, int n_fft, int hop,
-                                  int length, void* stream) {
-  const int k = n_fft / hop;
-  const int half = n_fft / 2;
-  const int default_len = (t_f - 1) * hop;
-  const int out_len = length < default_len ? length : default_len;
-  // output sample idx sits at OLA position idx + half, in hop-row (idx + half) / hop
-  const int t_lo = half / hop;
-  const int t_hi = (half + length - 1) / hop;
-  const int rows = t_hi - t_lo + 1;
-  const int total_rows = batch * rows;
-  const int w_stride = (hop + 3) / 4 * 4;
-  dim3 grid((total_rows + BM - 1) / BM, (hop + BN - 1) / BN);
-  fused_istft_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      spec, w, env, out, t_f, 2 * n_freq, hop, w_stride, k, half, length, out_len,
-      t_lo, rows, total_rows);
+// t_lo, tiles, rows_per_tile, frames_per_chunk, smem_bytes: the tile plan
+// and the block's dynamic shared memory (ops/fused_istft.py `tile_plan`,
+// `TilePlan.smem_bytes`: the layout at the top of the kernel).
+// Launches on `stream` and returns a cudaError_t (0 on success).
+extern "C" int fused_istft_launch(const float* spec, const float* tables, const float* env,
+                                  float* out, int batch, int t_f, int n_fft, int hop,
+                                  int length, int t_lo, int tiles, int rows_per_tile,
+                                  int frames_per_chunk, int smem_bytes, void* stream) {
+  const int log2n = log2_exact(n_fft), log2hop = log2_exact(hop);
+  if (log2n < 6 || log2n > 10 || log2hop < 0 || hop > n_fft || rows_per_tile < 1 ||
+      frames_per_chunk < 1 || tiles < 1 || smem_bytes < 1 || smem_bytes > SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long default_len = (long long)(t_f - 1) * hop;
+  const int out_len = length < default_len ? length : static_cast<int>(default_len);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_istft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_istft_kernel<<<(unsigned)batch * tiles, THREADS, smem_bytes,
+                       static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float2*>(spec), tables, env, out, t_f, log2n - 1, log2hop, length,
+      out_len, t_lo, tiles, rows_per_tile, frames_per_chunk);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,11 +7,17 @@ is what the model calls: it launches the kernel for a CUDA tensor and runs
 the plain version, `istft_plain` (`ops.stft.istft`), only for a CPU tensor.
 `launches` counts the kernel's launches, so a run can show that its path went
 through the kernel.
+
+The kernel computes each frame's inverse real DFT as an N/2-point complex
+FFT. What it reads besides the spectrogram and the envelope comes from here:
+the twiddle and window tables (`kernel_tables_np`) and the cut of the work
+into blocks (`tile_plan`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -19,46 +25,124 @@ import numpy as np
 import torch
 
 from flow2gan_tpu_torch.ops import cuda_build
-from flow2gan_tpu_torch.ops.stft import _irdft_matrices, const_tensor, envelope, hann_window_np
+from flow2gan_tpu_torch.ops.stft import const_tensor, envelope, hann_window_np
 from flow2gan_tpu_torch.ops.stft import istft as istft_plain
 
 launches = 0
 
+N_FFTS = (64, 128, 256, 512, 1024)
+# The tile rule, tuned on an H100 at the six main-path shapes (PERF.md):
+# aim at BLOCKS_PER_SM blocks for each of the card's SMs, so that one block's
+# loads and barriers overlap others' arithmetic; give each tile at least
+# HALO_ROWS * (k - 1) rows, so that halo frames add at most 1 / HALO_ROWS to
+# the transforms; and keep a chunk of frames (two ping-pong buffers of N/2
+# complex values, 8 * n_fft bytes per frame) within FRAME_BUFFER_BYTES.
+BLOCKS_PER_SM = 4
+HALO_ROWS = 3
+FRAME_BUFFER_BYTES = 64 * 1024
+
 
 def supported(n_fft: int, hop_length: int) -> bool:
-    """The kernel takes any hop that divides n_fft (the TPU kernel also
-    needed 128-aligned hops, a lane limit Hopper does not have)."""
-    return n_fft % hop_length == 0
+    """The kernel takes every power-of-two n_fft from 64 to 1024 and any hop
+    that divides it (the TPU kernel also needed 128-aligned hops, a lane
+    limit Hopper does not have)."""
+    return n_fft in N_FFTS and hop_length >= 1 and n_fft % hop_length == 0
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("fused_istft")
-    lib.fused_istft_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    lib.fused_istft_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.fused_istft_launch.restype = ctypes.c_int
     return lib
 
 
-def kernel_weights_np(n_fft: int, hop_length: int) -> np.ndarray:
-    """(k, 2F, hop padded to a multiple of 4) float32: W[j, 2q + r, c] is
-    row q of the window-folded iDFT matrix A (r = 0) or B (r = 1) at column
-    j * hop + c, so that one frame of view_as_real(spec) times W[j] is that
-    frame's j-th hop slice. The zero pad columns let the kernel copy W in
-    16-byte pieces."""
-    A, B = _irdft_matrices(n_fft)
-    window = hann_window_np(n_fft)[None, :]
-    k = n_fft // hop_length
-    w = np.stack([A * window, B * window], axis=1).reshape(-1, n_fft)  # (2F, n_fft)
-    w = w.reshape(-1, k, hop_length).transpose(1, 0, 2)
-    pad = -hop_length % 4
-    return np.ascontiguousarray(np.pad(w, ((0, 0), (0, 0), (0, pad))))
+def kernel_tables_np(n_fft: int):
+    """(twiddles, window) as the kernel reads them, float32: twiddles
+    (n_fft/2, 2) holds cos and sin of 2 pi j / n_fft for j < n_fft/2, and
+    window (n_fft,) the periodic Hann window with the inverse DFT's 1/n_fft
+    folded in. Both are computed in float64 and rounded once."""
+    ang = 2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    twiddles = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    window = (hann_window_np(n_fft).astype(np.float64) / n_fft).astype(np.float32)
+    return twiddles, window
 
 
 @functools.lru_cache(maxsize=32)
-def _kernel_weights(n_fft: int, hop_length: int, device: torch.device) -> torch.Tensor:
-    return const_tensor(kernel_weights_np(n_fft, hop_length), device)
+def _kernel_tables(n_fft: int, device: torch.device) -> torch.Tensor:
+    """The two tables back to back on `device`: 2 * n_fft float32."""
+    return const_tensor(np.concatenate([t.ravel() for t in kernel_tables_np(n_fft)]), device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """How the kernel cuts an iSTFT into blocks.
+
+    The overlap-added signal, cut into hop-wide rows, has output sample idx
+    at row (idx + n_fft/2) // hop. Block (b, tile) owns rows
+    [t0, t0 + rows_per_tile) of batch entry b, t0 = t_lo + tile *
+    rows_per_tile, and transforms the frames f in [t0 - k + 1, t0 +
+    rows_per_tile) that exist, k - 1 halo frames included, in chunks of at
+    most `frames_per_chunk`, the last frames first. It writes each output
+    sample of its rows exactly once. The kernel computes this map itself;
+    `tests/test_torch_port_ops.py` mirrors it."""
+
+    n_fft: int
+    hop: int
+    t_f: int
+    length: int
+    rows_per_tile: int
+    frames_per_chunk: int
+
+    @property
+    def k(self) -> int:
+        return self.n_fft // self.hop
+
+    @property
+    def t_lo(self) -> int:
+        """The row of output sample 0."""
+        return self.n_fft // 2 // self.hop
+
+    @property
+    def rows(self) -> int:
+        """Rows from output sample 0 to output sample length - 1."""
+        return (self.n_fft // 2 + self.length - 1) // self.hop - self.t_lo + 1
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.rows // self.rows_per_tile)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The dynamic shared memory of one block, which the launcher in
+        csrc/fused_istft.cu is given and the kernel carves: the twiddles, two
+        frame buffers, the window, the tile's envelope slice and, where a
+        tile takes several chunks, its partial sums."""
+        chunked = self.rows_per_tile + self.k - 1 > self.frames_per_chunk
+        return (8 * self.n_fft + 8 * self.frames_per_chunk * (self.n_fft + 1)
+                + 4 * self.rows_per_tile * self.hop * (1 + chunked))
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(batch: int, t_f: int, n_fft: int, hop_length: int, length: int,
+              sm_count: int) -> TilePlan:
+    """Rows per tile: as many as leave BLOCKS_PER_SM blocks for each of the
+    card's `sm_count` SMs, but at least HALO_ROWS * (k - 1), and no more
+    than one chunk of frames holds with its k - 1 halo frames. Halo frames
+    are transformed by both tiles that need them, at (k - 1) /
+    rows_per_tile extra work. Only where k alone overflows a chunk (k above
+    8192 / n_fft, so hop below 128 at n_fft 1024) does a tile take its
+    frames in several chunks."""
+    max_frames = FRAME_BUFFER_BYTES // (8 * n_fft)
+    plan = TilePlan(n_fft, hop_length, t_f, length, 1, 1)
+    fit = max(max_frames - plan.k + 1, 1)
+    target_blocks = BLOCKS_PER_SM * sm_count
+    rows_per_tile = min(max(batch * plan.rows // target_blocks, HALO_ROWS * (plan.k - 1), 1),
+                        fit, plan.rows)
+    return dataclasses.replace(plan, rows_per_tile=rows_per_tile,
+                               frames_per_chunk=min(max_frames, rows_per_tile + plan.k - 1))
 
 
 def istft_kernel(
@@ -76,7 +160,8 @@ def istft_kernel(
     if not spec.is_contiguous():
         raise ValueError("istft_kernel needs a contiguous spectrogram")
     if not supported(n_fft, hop_length):
-        raise NotImplementedError(f"fused iSTFT needs n_fft % hop == 0 ({n_fft}, {hop_length})")
+        raise NotImplementedError(f"fused iSTFT takes n_fft in {N_FFTS} with n_fft % hop == 0, "
+                                  f"got ({n_fft}, {hop_length})")
     if spec.device.index != torch.cuda.current_device():
         raise ValueError(f"spectrogram is on {spec.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
@@ -85,12 +170,15 @@ def istft_kernel(
         length = (t_f - 1) * hop_length
     if batch < 1 or t_f < 1 or length < 1:
         raise ValueError(f"empty iSTFT: batch {batch}, frames {t_f}, length {length}")
-    w = _kernel_weights(n_fft, hop_length, spec.device)
+    sm_count = torch.cuda.get_device_properties(spec.device).multi_processor_count
+    plan = tile_plan(batch, t_f, n_fft, hop_length, length, sm_count)
+    tables = _kernel_tables(n_fft, spec.device)
     env = envelope(t_f, n_fft, hop_length, spec.device)
     out = torch.empty(batch, length, dtype=torch.float32, device=spec.device)
     err = _library().fused_istft_launch(
-        torch.view_as_real(spec).data_ptr(), w.data_ptr(), env.data_ptr(),
-        out.data_ptr(), batch, t_f, n_freq, n_fft, hop_length, length,
+        torch.view_as_real(spec).data_ptr(), tables.data_ptr(), env.data_ptr(),
+        out.data_ptr(), batch, t_f, n_fft, hop_length, length, plan.t_lo,
+        plan.tiles, plan.rows_per_tile, plan.frames_per_chunk, plan.smem_bytes,
         torch.cuda.current_stream(spec.device).cuda_stream,
     )
     if err != 0:

@@ -24,6 +24,7 @@ from flow2gan_tpu_torch.ops import stft as pstft
 from flow2gan_tpu_torch.utils import make_valid_mask, safe_log
 
 ISTFT_PAIRS = [(512, 256), (256, 128), (1024, 256), (128, 64)]
+H100_SMS = 132  # the SM count of the H100 SXM the tile rule was tuned on
 
 
 def _audio(b, length, seed=0):
@@ -83,41 +84,198 @@ def test_plain_istft_matches_pallas_interpret(n_fft, hop, length):
     assert _rel_err(ours, ref) < 5e-6
 
 
-def _kernel_formulation(spec: np.ndarray, n_fft, hop, length):
-    """The CUDA kernel's arithmetic in numpy: output hop-row t sums
-    view_as_real(spec)[t - j] @ W[j] over the k shifts j, then the store
-    maps (t, c) to output index t * hop + c - n_fft // 2, divides by the
-    envelope below out_len and writes zeros up to `length`."""
-    b, t_f, n_freq = spec.shape
-    w = fused.kernel_weights_np(n_fft, hop).astype(np.float64)  # (k, 2F, hop + pad)
-    assert w.shape[-1] % 4 == 0 and not w[..., hop:].any()
-    w = w[..., :hop]
-    k = n_fft // hop
-    a = np.stack([spec.real, spec.imag], axis=-1).reshape(b, t_f, 2 * n_freq)
-    rows = np.zeros((b, t_f + k - 1, hop))
-    for j in range(k):
-        rows[:, j : j + t_f] += a @ w[j]
-    flat = rows.reshape(b, -1)
-    half, default = n_fft // 2, (t_f - 1) * hop
-    out_len = min(length, default)
-    out = np.zeros((b, length))
-    env = pstft._istft_envelope(t_f, n_fft, hop)
-    out[:, :out_len] = flat[:, half : half + out_len] / env[:out_len]
+def _fft_frames(spec: np.ndarray, n_fft):
+    """The kernel's per-frame arithmetic in numpy complex64, vectorised over
+    frames: the Hermitian pack into M = n_fft/2 points, the Stockham passes
+    in the kernel's order (radix 2 first where log2 M is odd, else radix 4,
+    then radix 4), and the even/odd unpack (the complex result read as
+    floats). Returns (..., n_fft) frames, unwindowed and scaled by n_fft."""
+    twiddles, _ = fused.kernel_tables_np(n_fft)
+    half = (twiddles[:, 0] + 1j * twiddles[:, 1]).astype(np.complex64)
+    tw = np.concatenate([half, -half])  # the kernel's e^{i (theta + pi)} = -e^{i theta}
+    m_pts = n_fft // 2
+    x = spec.astype(np.complex64)  # a copy
+    x[..., 0] = x[..., 0].real  # the imaginary parts at DC and Nyquist are dropped
+    x[..., m_pts] = x[..., m_pts].real
+    xm, xc = x[..., :m_pts], np.conj(x[..., m_pts:0:-1])  # X[m], conj X[M - m]
+    z = (xm + xc) + 1j * half * (xm - xc)
+    log2m = int(np.log2(m_pts))
+    s = 1
+    for radix in [2 if log2m % 2 else 4] + [4] * ((log2m - 1) // 2):
+        step = m_pts // radix
+        r = np.arange(step)
+        base = r & ~(s - 1)
+        ins = [z[..., j * step : (j + 1) * step] for j in range(radix)]
+        if radix == 2:
+            outs = [ins[0] + ins[1], ins[0] - ins[1]]
+        else:
+            a, b, c, d = ins
+            outs = [a + c + (b + d), (a - c) + 1j * (b - d), a + c - (b + d), (a - c) - 1j * (b - d)]
+        y = np.empty_like(z)
+        y[..., radix * base + (r - base)] = outs[0]
+        for j in range(1, radix):
+            y[..., radix * base + (r - base) + j * s] = outs[j] * tw[2 * j * base]
+        z, s = y, s * radix
+    assert s == m_pts
+    return np.stack([z.real, z.imag], axis=-1).reshape(*z.shape[:-1], n_fft)
+
+
+def _tile(plan: fused.TilePlan, i):
+    """(t0, t1, fa, fb): tile i's rows [t0, t1) and frames [fa, fb), as the
+    kernel computes them."""
+    t0 = plan.t_lo + i * plan.rows_per_tile
+    t1 = min(t0 + plan.rows_per_tile, plan.t_lo + plan.rows)
+    return t0, t1, max(t0 - plan.k + 1, 0), min(t0 + plan.rows_per_tile, plan.t_f)
+
+
+def _chunks(plan: fused.TilePlan, i):
+    """Tile i's frames as (lo, hi) chunks in the kernel's order, last frames
+    first, so each output sums its frames from the latest to the earliest,
+    as the plain overlap-add does. At least one chunk, possibly empty, so
+    that a tile with no frames still writes its zeros."""
+    _, _, fa, fb = _tile(plan, i)
+    c = plan.frames_per_chunk
+    n = max(-(-(fb - fa) // c), 1)
+    return [(max(fb - (j + 1) * c, fa), fb - j * c) for j in range(n)]
+
+
+def _tile_writes(plan: fused.TilePlan):
+    """Per tile: its rows t, its chunks of frames and the output index of
+    each (row, column), as the kernel's store maps them."""
+    c = np.arange(plan.hop)
+    for i in range(plan.tiles):
+        t0, t1, _, _ = _tile(plan, i)
+        t = np.arange(t0, t1)
+        yield i, t, _chunks(plan, i), t[:, None] * plan.hop + c - plan.n_fft // 2
+
+
+def _fft_form(spec: np.ndarray, plan: fused.TilePlan):
+    """The CUDA kernel's arithmetic in numpy: `_fft_frames`, then per tile
+    and chunk (last frames first) the windowed overlap-add of frames
+    f = t - j, j = 0 .. k-1, and the store, which divides by the envelope
+    below out_len and writes zeros up to `length`."""
+    b = spec.shape[0]
+    hop, k = plan.hop, plan.k
+    _, window = fused.kernel_tables_np(plan.n_fft)
+    frames = _fft_frames(spec, plan.n_fft)
+    out_len = min(plan.length, (plan.t_f - 1) * hop)
+    env = np.ones(plan.length, np.float32)  # ones past out_len, never divided by
+    env[:out_len] = pstft._istft_envelope(plan.t_f, plan.n_fft, hop)[:out_len]
+    out = np.full((b, plan.length), np.nan, np.float32)
+    for _, t, chunks, idx in _tile_writes(plan):
+        acc = np.zeros((b, len(t), hop), np.float32)
+        for lo, hi in chunks:
+            for j in range(k):
+                f = t - j
+                sel = (f >= lo) & (f < hi)
+                acc[:, sel] += window[j * hop : (j + 1) * hop] * frames[:, f[sel], j * hop : (j + 1) * hop]
+        keep = (idx >= 0) & (idx < plan.length)
+        vals = np.where(idx < out_len, acc / env[np.clip(idx, 0, plan.length - 1)], 0.0)
+        out[:, idx[keep]] = vals[:, keep]
     return out
 
 
-@pytest.mark.parametrize("n_fft,hop", ISTFT_PAIRS)
+@pytest.mark.parametrize("n_fft,hop", ISTFT_PAIRS + [(64, 32)])
 @pytest.mark.parametrize("t_f,length", [(33, None), (33, 5000), (33, 3000), (2, None), (1, 64)])
 def test_kernel_formulation_matches_plain(n_fft, hop, t_f, length):
-    """The weight layout and index map the kernel uses reproduce the plain
-    iSTFT, including T_f <= k and `length` above and below the default."""
+    """The kernel's FFT form, tile map and overlap-add reproduce the plain
+    iSTFT, including T_f <= k, `length` above and below the default, and
+    nonzero imaginary parts at DC and Nyquist (which both ignore)."""
     rng = np.random.RandomState(t_f)
     n_freq = n_fft // 2 + 1
     spec = (rng.randn(3, t_f, n_freq) + 1j * rng.randn(3, t_f, n_freq)).astype(np.complex64)
+    assert np.abs(spec[..., [0, -1]].imag).min() > 0
     length_ = (t_f - 1) * hop if length is None else length
-    ours = _kernel_formulation(spec, n_fft, hop, length_)
+    ours = _fft_form(spec, fused.tile_plan(3, t_f, n_fft, hop, length_, H100_SMS))
     ref = pstft.istft(torch.from_numpy(spec), n_fft, hop, length=length).numpy()
     assert _rel_err(ours, ref) < 5e-6
+
+
+@pytest.mark.parametrize("n_fft", fused.N_FFTS)
+def test_fft_frames_match_irfft(n_fft):
+    """Pack, Stockham passes and unpack give n_fft * irfft of the spectrum
+    with its DC and Nyquist imaginary parts dropped, to float32 rounding."""
+    rng = np.random.RandomState(n_fft)
+    spec = (rng.randn(4, n_fft // 2 + 1) + 1j * rng.randn(4, n_fft // 2 + 1)).astype(np.complex64)
+    ref = spec.astype(np.complex128)
+    ref[:, [0, -1]] = ref[:, [0, -1]].real
+    ref = n_fft * np.fft.irfft(ref, n_fft)
+    assert _rel_err(_fft_frames(spec, n_fft), ref) < 2e-6
+
+
+@pytest.mark.parametrize("n_fft", fused.N_FFTS)
+def test_kernel_tables_match_float64(n_fft):
+    """The twiddle and window tables are the float64 values rounded once to
+    float32: within half an ulp of float32 at 1."""
+    twiddles, window = fused.kernel_tables_np(n_fft)
+    assert twiddles.dtype == window.dtype == np.float32
+    assert twiddles.shape == (n_fft // 2, 2) and window.shape == (n_fft,)
+    ang = 2.0 * np.pi * np.arange(n_fft // 2) / n_fft
+    half_ulp = np.finfo(np.float32).eps / 2
+    assert np.abs(twiddles[:, 0] - np.cos(ang)).max() <= half_ulp
+    assert np.abs(twiddles[:, 1] - np.sin(ang)).max() <= half_ulp
+    hann = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
+    assert np.abs(window * n_fft - hann).max() <= half_ulp
+
+
+@pytest.mark.parametrize("n_fft,hop,t_f,length,rows_per_tile,frames_per_chunk", [
+    (512, 128, 40, 5000, 2, 5),  # R < k
+    (512, 128, 40, 5000, 4, 7),  # R = k
+    (512, 128, 40, 5000, 3, 2),  # chunks smaller than the tile's frames
+    (1024, 256, 3, 900, 2, 5),  # T_f <= k, length above the default
+    (256, 256, 5, 1000, 2, 2),  # k = 1
+])
+def test_tile_map_writes_each_output_once(n_fft, hop, t_f, length, rows_per_tile,
+                                          frames_per_chunk):
+    """Every output index is written by exactly one tile; each tile's chunks
+    cover its frames once; every frame a row overlaps is among them. The
+    arithmetic on that map still matches the plain version."""
+    plan = fused.TilePlan(n_fft, hop, t_f, length, rows_per_tile, frames_per_chunk)
+    writes = np.zeros(length, int)
+    for i, t, chunks, idx in _tile_writes(plan):
+        np.add.at(writes, idx[(idx >= 0) & (idx < length)], 1)
+        _, _, fa, fb = _tile(plan, i)
+        covered = np.concatenate([np.arange(lo, hi) for lo, hi in chunks])
+        assert sorted(covered) == list(range(fa, fb))
+        assert all(hi - lo <= frames_per_chunk for lo, hi in chunks)
+        needed = {f for f in range(t_f) for row in t if 0 <= row - f < plan.k}
+        assert needed <= set(covered.tolist())
+    np.testing.assert_array_equal(writes, 1)
+    rng = np.random.RandomState(5)
+    spec = (rng.randn(2, t_f, n_fft // 2 + 1) + 1j * rng.randn(2, t_f, n_fft // 2 + 1)
+            ).astype(np.complex64)
+    ref = pstft.istft(torch.from_numpy(spec), n_fft, hop, length=length).numpy()
+    assert _rel_err(_fft_form(spec, plan), ref) < 5e-6
+
+
+@pytest.mark.parametrize("n_fft,hop,t_f,length", [
+    (512, 256, 95, 24064), (256, 128, 189, 24064), (128, 64, 377, 24064),
+    (1024, 512, 88, 44544), (512, 256, 175, 44544), (256, 128, 349, 44544),
+])
+def test_tile_plan_fills_the_card_at_main_shapes(n_fft, hop, t_f, length):
+    """Batch 16 at each main-path shape gives at least two blocks for each
+    of the H100's SMs, in one chunk of frames per tile that fits the
+    shared-memory budget, with halo frames at most a third of the tile's."""
+    plan = fused.tile_plan(16, t_f, n_fft, hop, length, H100_SMS)
+    assert 16 * plan.tiles >= 2 * H100_SMS
+    assert plan.rows_per_tile >= fused.HALO_ROWS * (plan.k - 1)
+    assert plan.rows_per_tile + plan.k - 1 == plan.frames_per_chunk
+    assert 8 * n_fft * plan.frames_per_chunk <= fused.FRAME_BUFFER_BYTES
+    assert plan.smem_bytes <= 227 * 1024 // 4  # four blocks fit on an SM
+    assert all(len(_chunks(plan, i)) == 1 for i in range(plan.tiles))
+
+
+@pytest.mark.parametrize("sm_count", [66, 114, 264])
+def test_tile_plan_follows_the_sm_count(sm_count):
+    """A card with fewer SMs gets fewer, longer tiles, one with more gets
+    more blocks, each within the halo floor and the frame budget."""
+    n_fft, hop, t_f, length = 128, 64, 377, 24064
+    plan = fused.tile_plan(16, t_f, n_fft, hop, length, sm_count)
+    h100 = fused.tile_plan(16, t_f, n_fft, hop, length, H100_SMS)
+    assert (plan.rows_per_tile - h100.rows_per_tile) * (H100_SMS - sm_count) > 0
+    assert 16 * plan.tiles >= 2 * sm_count
+    assert plan.rows_per_tile >= fused.HALO_ROWS * (plan.k - 1)
+    assert 8 * n_fft * plan.frames_per_chunk <= fused.FRAME_BUFFER_BYTES
 
 
 def test_fused_istft_uses_plain_version_on_cpu_only():
@@ -129,6 +287,9 @@ def test_fused_istft_uses_plain_version_on_cpu_only():
     with pytest.raises(ValueError, match="CUDA"):
         fused.istft_kernel(spec, 256, 128)
     assert fused.supported(128, 64) and not fused.supported(512, 200)
+    assert fused.supported(64, 32) and fused.supported(1024, 512) and fused.supported(1024, 1)
+    assert not fused.supported(2048, 512) and not fused.supported(32, 16)
+    assert not fused.supported(96, 32)
 
 
 def test_cached_constants_outlive_inference_mode():
