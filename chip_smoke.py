@@ -18,32 +18,61 @@ prints no result line):
    with its time, the plain version's, the time of `torch.istft` (a
    yardstick the port never calls), the bound, and the timing floor (what
    the same timing reads for a one-element `add_`);
-4. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
+4. the adjoint kernel (the iSTFT's backward) against its plain version at
+   the same shapes and at the three branch shapes of a training step (batch
+   16 x 1.5 s), with exactly zero imaginary parts at DC and Nyquist, the
+   dot-product identity <istft(s), g> = <s, adjoint(g)> on the card, its
+   time, the plain adjoint's, that of `torch.stft` (the yardstick: the same
+   transform of the padded, enveloped gradient, up to the bin weights), and
+   the bound;
+5. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
    mel at 1, 2 and 4 Euler steps, with the launch count of the kernel over
    that run, then the per-call time and x-real-time over timed calls, and
    mel_44k_128band_512x_base once at 1 step;
-5. card against CPU: the same weights and x0 through `infer_from_noise`;
-6. `reconstruct` from a waveform;
-7. the device-time breakdown of one 1-step call (torch.profiler);
-8. the `kernels` JSON line, then the card line and the result line.
+6. card against CPU: the same weights and x0 through `infer_from_noise`;
+7. `reconstruct` from a waveform;
+8. the device-time breakdown of one 1-step call (torch.profiler);
+9. gradients, card against CPU: the FM loss of full mel_24k_base at batch
+   2 x 1 s and every parameter's gradient, with the same weights and draws,
+   and the launches of both kernels in that step;
+10. the trainer: a synthetic 24 kHz corpus written under build/, the port's
+   `bin/pretrain.py` run in-process on mel_24k_base (batch 16 x 1.5 s, 32
+   steps), with its launch counts, loss curve, step times, audio trained per
+   second and peak memory; the checkpoints reloaded; `save_averaged_model`
+   and a 1-step call served from the averaged weights; the device-time
+   breakdown of one training step by family;
+11. the `kernels` JSON line, then the card line and the result line.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from flow2gan_tpu_torch import get_model
+from flow2gan_tpu_torch.api import init_weights
+from flow2gan_tpu_torch.bin import pretrain, save_averaged_model
+from flow2gan_tpu_torch.data.audio_io import write_wav
+from flow2gan_tpu_torch.data.dataset import Recording, write_recording_manifest
+from flow2gan_tpu_torch.models import FMDraws, build_generator, get_generator_config
+from flow2gan_tpu_torch.models.generator import branch_dropout_weight
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
-from flow2gan_tpu_torch.ops.stft import hann_window_np
+from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
+from flow2gan_tpu_torch.ops.stft import envelope, hann_window_np
+from flow2gan_tpu_torch.training import checkpoint as ckpt
+from flow2gan_tpu_torch.training.optim import ScaledAdam
+from flow2gan_tpu_torch.training.train_step import fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import disable_tf32
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and float32 FMA rate outside the
@@ -52,6 +81,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 ISTFT_TOL = 1e-5  # kernel vs plain, relative to max|plain|
 CARD_VS_CPU_TOL = 1e-4  # whole model, relative to max|CPU|
+# Gradients, card vs CPU (float32, TF32 off). Card and CPU round every op
+# differently, and single tensors whose gradients nearly cancel (BiasNorm
+# biases and log_scale) move far more than the whole: on the CPU, one float32
+# ulp on an input moves the whole gradient by 1.3e-5 of its norm and such a
+# tensor by up to 2.3e-3 of its own. Measured on an H100 80GB HBM3: 7.4e-8
+# (loss), 6.3e-5 (whole gradient), 2.9e-3 (worst tensor); the same check
+# with TF32 on read 1.0e-5, 1.0e-3 and 6.2e-2. The limits lie between the two.
+LOSS_TOL = 1e-6  # relative
+GRAD_TOL = 2.5e-4  # |grad_card - grad_cpu| / |grad_cpu| over all parameters
+GRAD_TENSOR_TOL = 1e-2  # the same for each parameter tensor
 TIMED_SAMPLES = 25
 TIMED_CALLS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms of GPU spin ahead of each timed sample
@@ -81,6 +120,18 @@ EDGE_SHAPES = [
     (1024, 256, 4, 40, 9984, False),  # k = 4, T_f above k
     (1024, 64, 2, 40, 2560, False),  # k = 16: tiles take their frames in chunks
 ]
+# (n_fft, hop, batch, t_f, length): the branches of one mel_24k_base training
+# step, batch 16 x 1.5 s crops
+TRAIN_SHAPES = [
+    (512, 256, 16, 141, 36000),
+    (256, 128, 16, 282, 36000),
+    (128, 64, 16, 563, 36000),
+]
+TRAIN_STEPS = 32  # 2 epochs of a 256-recording corpus at batch 16
+TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
+              "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
+              "--keep-last-k", "1", "--average-period", "4", "--log-interval", "8",
+              "--valid-interval", "16", "--device", "cuda"]
 
 
 def card_line() -> str:
@@ -183,6 +234,79 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: b
     return row
 
 
+def adjoint_bound_ms(n_fft, batch, t_f, length):
+    """(bytes_ms, ops_ms) of the iSTFT's adjoint: the waveform's gradient read
+    once and the spectrogram's written once; a forward real FFT per frame
+    (2.5 N log2 N FLOP), the window multiply (N per frame) and the envelope
+    divide (one per sample)."""
+    bytes_ = batch * length * 4 + batch * t_f * (n_fft // 2 + 1) * 8
+    flop = batch * t_f * (2.5 * n_fft * math.log2(n_fft) + n_fft) + batch * length
+    return bytes_ / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
+
+
+def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(7 * n_fft + t_f + batch)
+    grad = torch.randn(batch, length, generator=gen, device="cuda")
+    ref = fused.istft_adjoint_plain(grad, t_f, n_fft, hop)
+    out = fused.istft_adjoint_kernel(grad, t_f, n_fft, hop)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(torch.view_as_real(out)).all():
+        raise AssertionError(f"adjoint output {tuple(out.shape)} not finite or not {tuple(ref.shape)}")
+    abs_err = (torch.view_as_real(out) - torch.view_as_real(ref)).abs().max().item()
+    scale = torch.view_as_real(ref).abs().max().item()
+    rel_err = abs_err / max(scale, 1e-30)
+    # the forward kernel drops the imaginary parts at DC and Nyquist, so
+    # their gradient is exactly zero
+    edge_imag = out[..., [0, -1]].imag.abs().max().item()
+    # <istft(s), g> = <s, adjoint(g)> with both kernels
+    spec = torch.complex(torch.randn(batch, t_f, n_fft // 2 + 1, generator=gen, device="cuda"),
+                         torch.randn(batch, t_f, n_fft // 2 + 1, generator=gen, device="cuda"))
+    y = fused.istft_kernel(spec, n_fft, hop, length=length).double()
+    lhs = (y * grad.double()).sum().item()
+    rhs = (torch.view_as_real(spec).double() * torch.view_as_real(out).double()).sum().item()
+    dot_err = abs(lhs - rhs) / max((y * grad.double()).abs().sum().item(), 1e-30)
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused.adjoint_plan(batch, t_f, n_fft, hop, sm_count)
+    row = dict(n_fft=n_fft, hop=hop, batch=batch, t_f=t_f, length=length, max_abs_err=abs_err,
+               max_rel_err=rel_err, dc_nyquist_max_imag=edge_imag, dot_identity_rel_err=dot_err,
+               frames_per_tile=plan.frames_per_tile, blocks=batch * plan.tiles,
+               smem_bytes=plan.smem_bytes)
+    if not (rel_err <= ISTFT_TOL and edge_imag == 0.0 and dot_err <= ISTFT_TOL):
+        raise AssertionError(f"adjoint kernel disagrees with its plain version: {row}")
+    if timed:
+        # the yardstick: torch.stft of the enveloped gradient on the centred
+        # grid, which is the adjoint up to the bin weights (1 at DC and
+        # Nyquist, 2 elsewhere, over n_fft)
+        out_len = min(length, (t_f - 1) * hop)
+        padded = torch.nn.functional.pad(
+            grad[:, :out_len] / envelope(t_f, n_fft, hop, grad.device)[:out_len],
+            (n_fft // 2, n_fft // 2 + (t_f - 1) * hop - out_len))
+        window = torch.from_numpy(hann_window_np(n_fft)).cuda()
+        weights = torch.full((n_fft // 2 + 1, 1), 2.0 / n_fft, device="cuda")
+        weights[0] = weights[-1] = 1.0 / n_fft
+
+        def library():
+            return torch.stft(padded, n_fft, hop, window=window, center=False, return_complex=True)
+
+        lib = (library() * weights).transpose(1, 2)
+        lib_err = ((torch.view_as_real(lib) - torch.view_as_real(ref)).abs().max().item()
+                   / max(scale, 1e-30))
+        fns = {
+            "ms": lambda: fused.istft_adjoint_kernel(grad, t_f, n_fft, hop),
+            "plain_ms": lambda: fused.istft_adjoint_plain(grad, t_f, n_fft, hop),
+            "library_ms": library,
+        }
+        times = {key: [] for key in fns}
+        for key in [*fns, *reversed(fns)]:
+            times[key] += device_ms(fns[key])
+        bytes_ms, ops_ms = adjoint_bound_ms(n_fft, batch, t_f, length)
+        row.update({key: statistics.median(v) for key, v in times.items()})
+        row.update(samples=len(times["ms"]), library_max_rel_err=lib_err,
+                   bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    return row
+
+
 def time_calls(fn, calls: int = TIMED_CALLS):
     """Host wall time per call in ms, each call ended by a device sync."""
     for _ in range(3):
@@ -200,7 +324,7 @@ def time_calls(fn, calls: int = TIMED_CALLS):
 def main_path(card: str, model, mel):
     """Serve mel_24k_base at 1/2/4 steps; returns the kernel's launches over
     one call at each step count, and the median ms of a 1-step call."""
-    fused.launches = 0
+    fused.launches = fused.adjoint_launches = 0
     for n in (1, 2, 4):
         before = fused.launches
         wav = model.infer(mel, n_timesteps=n)
@@ -211,6 +335,8 @@ def main_path(card: str, model, mel):
             raise AssertionError(f"{n}-step call launched the kernel {fused.launches - before} "
                                  f"times, expected {3 * n}")
     launches = fused.launches
+    if fused.adjoint_launches:
+        raise AssertionError(f"serving launched the adjoint {fused.adjoint_launches} times")
     print(f"main path: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
 
     audio_s = 16 * 24064 / 24000
@@ -297,6 +423,220 @@ def profile_one_call(card: str, model, mel, wall_ms: float):
     }))
 
 
+def voiced(rng: np.random.RandomState, batch: int, length: int, sr: int = 24000) -> np.ndarray:
+    """Voiced tones plus noise: a few harmonics of an f0 in 90-260 Hz with a
+    slow vibrato, under a syllable-rate envelope, float32 (batch, length)."""
+    t = np.arange(length) / sr
+    out = np.empty((batch, length), np.float32)
+    for i in range(batch):
+        f0 = rng.uniform(90.0, 260.0) * (1.0 + 0.03 * np.sin(2 * np.pi * rng.uniform(3, 7) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        x = sum(np.sin(h * phase) / h for h in range(1, 6))
+        x *= 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6.3)) ** 2
+        out[i] = 0.15 * x + 0.01 * rng.randn(length)
+    return out
+
+
+def grads_card_vs_cpu(card: str) -> None:
+    """The FM loss and every parameter gradient of full mel_24k_base at batch
+    2 x 1 s, card against CPU, with the same weights, t, x0, gates and branch
+    weights; the step goes through both kernels three times each."""
+    cfg = get_generator_config("mel_24k_base")
+    cpu = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.RandomState(5)
+    batch, frames = 2, 94
+    length = frames * 256
+    inputs = {"cond": rng.randn(batch, 100, frames).astype(np.float32),
+              "audio": voiced(rng, batch, length),
+              "lens": np.asarray([length, length - 3000])}
+    x0 = (0.1 * rng.randn(batch, length)).astype(np.float32)
+    t = rng.rand(batch).astype(np.float32)
+    gates = (rng.rand(cpu.num_limiters) < 0.6).astype(np.float32)
+    weight = branch_dropout_weight(torch.tensor([1, 0]), torch.tensor([[True], [False]]), 3)
+
+    def run(model, device):
+        draws = FMDraws(torch.from_numpy(x0).to(device), torch.from_numpy(t).to(device),
+                        gates=torch.from_numpy(gates).to(device), branch_weight=weight.to(device))
+        loss = model(*(torch.from_numpy(inputs[k]).to(device) for k in ("cond", "audio", "lens")),
+                     draws)
+        loss.backward()
+        return loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+    fused.launches = fused.adjoint_launches = 0
+    loss_gpu, g_gpu = run(gpu, "cuda")
+    launches = (fused.launches, fused.adjoint_launches)
+    if launches != (3, 3):
+        raise AssertionError(f"a training step launched (forward, adjoint) {launches}, expected (3, 3)")
+    loss_cpu, g_cpu = run(cpu, "cpu")
+    loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    per = {k: ((g_gpu[k] - g_cpu[k]).norm() / (g_cpu[k].norm() + 1e-300)).item() for k in g_cpu}
+    total = (math.sqrt(sum((g_gpu[k] - g_cpu[k]).norm().item() ** 2 for k in g_cpu))
+             / math.sqrt(sum(g_cpu[k].norm().item() ** 2 for k in g_cpu)))
+    worst = max(per, key=per.get)
+    err_sq = {k: (g_gpu[k] - g_cpu[k]).norm().item() ** 2 for k in g_cpu}
+    largest = max(err_sq, key=err_sq.get)
+    print("grads card vs CPU " + json.dumps({
+        "config": "mel_24k_base", "batch": batch, "length": length, "tensors": len(per),
+        "loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+        "grad_rel_err_all": total, "grad_rel_err_worst_tensor": per[worst], "worst_tensor": worst,
+        "grad_rel_err_median_tensor": statistics.median(per.values()),
+        "largest_error_tensor": largest, "its_share_of_the_error": err_sq[largest] / max(sum(err_sq.values()), 1e-300),
+        "launches_forward_adjoint": launches, "card": card}))
+    finite = all(torch.isfinite(g).all() for g in g_gpu.values())
+    if not (finite and loss_err <= LOSS_TOL and total <= GRAD_TOL and per[worst] <= GRAD_TENSOR_TOL):
+        raise AssertionError("card and CPU gradients disagree")
+
+
+def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
+    """n PCM16 recordings of voiced tones plus noise at 24 kHz, and their
+    manifest."""
+    rng = np.random.RandomState(seed)
+    (root / "wav").mkdir(parents=True, exist_ok=True)
+    recs = []
+    for i in range(n):
+        path = root / "wav" / f"utt{i:04d}.wav"
+        write_wav(path, voiced(rng, 1, int(seconds * 24000))[0], 24000)
+        recs.append(Recording(f"utt{i:04d}", str(path), 24000, int(seconds * 24000)))
+    manifest = root / "recordings.jsonl.gz"
+    write_recording_manifest(recs, manifest)
+    return manifest
+
+
+def device_families(fn) -> dict:
+    """Device ms by kernel family of what fn() runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def dev_us(e):  # the attribute's name differs across torch versions
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    def family(name):
+        for key in ("fused_istft_adjoint", "fused_istft", "gemm", "conv_depthwise"):
+            if key in name:
+                return key
+        return "elementwise, reductions, copies"
+
+    families = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and dev_us(e) > 0:
+            families[family(e.key)] = families.get(family(e.key), 0.0) + dev_us(e) / 1e3
+    return families
+
+
+def profile_train_step(card: str, step_ms: float) -> None:
+    """The device time of one mel_24k_base training step (batch 16 x 1.5 s)
+    by family, the optimizer's part measured alone, and the busy share
+    against the trainer's median step."""
+    cfg = get_generator_config("mel_24k_base")
+    model = init_weights(build_generator(cfg), torch.Generator().manual_seed(1)).cuda()
+    mel_fn = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100).cuda()
+    optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
+    audio = torch.from_numpy(voiced(np.random.RandomState(11), 16, 36000)).cuda()
+    batch = {"audio": audio, "audio_lens": torch.full((16,), 36000, device="cuda")}
+
+    def step(i):
+        return fm_train_step(model, optimizer, mel_fn, batch, 1e-3, step_generator(0, i, "cuda"))
+
+    for i in range(3):
+        step(i)
+    wall = []
+    for i in range(3, 8):  # without the data loader's threads beside it
+        begin = time.perf_counter()
+        float(step(i)["loss"])
+        wall.append((time.perf_counter() - begin) * 1e3)
+    step_fams = device_families(lambda: step(8))
+    model(mel_fn(audio), audio, batch["audio_lens"],
+          model.draw(audio, 141, step_generator(0, 9, "cuda"))).backward()
+    opt_ms = sum(device_families(lambda: optimizer.step(1e-3)).values())
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    model(mel_fn(audio), audio, batch["audio_lens"],
+          model.draw(audio, 141, step_generator(0, 10, "cuda"))).backward()
+    torch.cuda.synchronize()
+    start.record()
+    optimizer.step(1e-3)
+    stop.record()
+    torch.cuda.synchronize()
+    total = sum(step_fams.values())
+    if not total:
+        raise AssertionError("torch.profiler recorded no device time for a training step")
+    # the optimizer's kernels are all elementwise, reductions, sorts and copies
+    key = "elementwise, reductions, copies"
+    step_fams[key] = step_fams.get(key, 0.0) - opt_ms
+    step_fams["optimizer (ScaledAdam, measured alone)"] = opt_ms
+    print("profile train step " + json.dumps({
+        "config": "mel_24k_base", "batch": 16, "seconds_per_item": 1.5, "device_ms": total,
+        "step_ms_median_unprofiled": step_ms, "device_busy_share": total / step_ms,
+        "step_ms_median_without_loader": statistics.median(wall),
+        "by_family_ms": step_fams, "optimizer_share_of_device_ms": opt_ms / total,
+        "optimizer_span_ms_events": start.elapsed_time(stop),
+        "optimizer_groups": len(optimizer.groups), "parameter_tensors":
+            sum(len(g.params) for g in optimizer.groups), "card": card}))
+
+
+def trainer(card: str, root: Path) -> dict:
+    """mel_24k_base trained through the port's bin/pretrain.py; returns the
+    two kernels' launches over the run."""
+    shutil.rmtree(root, ignore_errors=True)
+    train = write_corpus(root / "train", 16 * TRAIN_STEPS // 2, 2.0, seed=21)
+    valid = write_corpus(root / "valid", 16, 2.0, seed=22)
+    exp = root / "exp"
+    args = pretrain.get_parser().parse_args(TRAIN_ARGS + [
+        "--exp-dir", str(exp), "--train-recordings", str(train), "--valid-recordings", str(valid)])
+    torch.cuda.reset_peak_memory_stats()
+    fused.launches = fused.adjoint_launches = 0
+    start = time.perf_counter()
+    history = pretrain.run(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = len(history)
+    valid_batches = 2  # --valid-interval 16 over 32 steps, one batch of 16 each
+    if steps != TRAIN_STEPS or launches != {"forward": 3 * (steps + valid_batches),
+                                            "adjoint": 3 * steps}:
+        raise AssertionError(f"trainer ran {steps} steps with launches {launches}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    ms = [h["ms"] for h in history[2:]]  # the first steps allocate and tune
+    med = statistics.median(ms)
+    print("trainer " + json.dumps({
+        "config": "mel_24k_base", "batch": 16, "seconds_per_item": 1.5, "steps": steps,
+        "loss_curve": losses, "clip_scale": [h["clip_scale"] for h in history],
+        "first_step_ms": history[0]["ms"], "step_ms_median": med, "step_ms_min": min(ms),
+        "step_ms_max": max(ms), "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
+        "peak_memory_gb": peak_gb, "run_wall_s": wall_s, "launches": launches, "card": card}))
+
+    # the checkpoints reload onto a fresh model and optimizer, and the
+    # batch checkpoint at the last step equals the last epoch's
+    last, batch_ckpt = ckpt.load_checkpoint(exp / "epoch-2.pt"), ckpt.load_checkpoint(
+        exp / f"checkpoint-{steps}.pt")
+    fresh = build_generator(get_generator_config("mel_24k_base"))
+    fresh.load_state_dict(last["model"], strict=True)
+    ScaledAdam(fresh.named_parameters(), clipping_scale=2.0).load_state_dict(last["optimizer"])
+    if last["batch_idx_train"] != steps or last["optimizer"]["step"] != steps or any(
+            not torch.equal(v, batch_ckpt["model"][k]) for k, v in last["model"].items()):
+        raise AssertionError("the checkpoints do not reload to the trained state")
+    out = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "2"])
+    served = get_model("mel_24k_base", checkpoint=out, device="cuda")
+    mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
+    before = fused.launches
+    wav = served.infer(mel, n_timesteps=1)
+    torch.cuda.synchronize()
+    if wav.shape != (16, 24064) or not torch.isfinite(wav).all() or fused.launches - before != 3:
+        raise AssertionError(f"the averaged model served {tuple(wav.shape)} with "
+                             f"{fused.launches - before} launches")
+    print(f"trainer checkpoints: epoch-2 and checkpoint-{steps} reload; averaged model "
+          f"{out.name} serves a 1-step call of {tuple(wav.shape)}, finite, 3 launches")
+    profile_train_step(card, med)
+    shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -332,6 +672,12 @@ def main() -> int:
         print("istft shape " + json.dumps(shapes[-1]))
     for shape in EDGE_SHAPES:
         print("istft edge " + json.dumps(check_istft_shape(*shape, timed=False)))
+    adjoint_shapes = []
+    for shape in MAIN_SHAPES + TRAIN_SHAPES:
+        adjoint_shapes.append(check_adjoint_shape(*shape, timed=True))
+        print("adjoint shape " + json.dumps(adjoint_shapes[-1]))
+    for shape in EDGE_SHAPES:
+        print("adjoint edge " + json.dumps(check_adjoint_shape(*shape[:5], timed=False)))
 
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
@@ -344,14 +690,19 @@ def main() -> int:
         raise AssertionError(f"reconstruct gave {tuple(wav.shape)}")
     print(f"reconstruct: (4, 24000) waveform -> {tuple(wav.shape)}, finite")
     profile_one_call(card, model, mel, wall_ms)
+    del model
+    grads_card_vs_cpu(card)
+    train_launches = trainer(card, Path(__file__).resolve().parent / "build" / "smoke_train")
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
+    train_step = adjoint_shapes[-3:]  # the three branches of one training step
     print(json.dumps({"kernels": [{
         "name": "fused_istft",
         "route": "cuda",
         "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:240",
         "launches": launches,
+        "launches_in_training": train_launches["forward"],
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),
         "ms": sum(s["ms"] for s in step),
@@ -364,6 +715,23 @@ def main() -> int:
         "floor_ms": floor_ms,
         "per": "one mel_24k_base Euler step at batch 16: the sum over its three branch shapes",
         "shapes": shapes,
+    }, {
+        "name": "fused_istft_adjoint",
+        "route": "cuda",
+        "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
+        "replaces": "flow2gan_tpu/ops/pallas_istft.py:222",
+        "launches": train_launches["adjoint"],
+        "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes),
+        "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes),
+        "ms": sum(s["ms"] for s in train_step),
+        "plain_ms": sum(s["plain_ms"] for s in train_step),
+        "bound_ms": sum(s["bound_ms"] for s in train_step),
+        "bound_by": ("operations" if sum(s["ops_ms"] for s in train_step)
+                     >= sum(s["bytes_ms"] for s in train_step) else "bytes"),
+        "library_ms": sum(s["library_ms"] for s in train_step),
+        "floor_ms": floor_ms,
+        "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",
+        "shapes": adjoint_shapes,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

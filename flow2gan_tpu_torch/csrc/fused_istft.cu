@@ -1,5 +1,6 @@
 // Fused iSTFT for Hopper (sm_90a): complex spectrogram -> waveform in one
-// launch, with the frames never written to device memory.
+// launch, with the frames never written to device memory. Below it, its
+// adjoint (the backward of training), built from the same FFT passes.
 //
 // Replaces the Pallas TPU kernel `_istft_pallas_impl`
 // (flow2gan_tpu/ops/pallas_istft.py:240, body `_istft_kernel` at :78).
@@ -241,6 +242,128 @@ fused_istft_kernel(const float2* __restrict__ spec,   // (B, T_f, M + 1)
   }
 }
 
+// The adjoint of the kernel above (its backward: the iSTFT is linear), the
+// gradient of the waveform g (B, length) -> the gradient of the spectrogram
+// G (B, T_f, M + 1) as d/dRe + i d/dIm. It replaces the XLA adjoint that the
+// Pallas kernel's custom VJP takes (flow2gan_tpu/ops/pallas_istft.py:222).
+// For frame f, with u[n] = w[n] / N * s[f hop + n - M] and s = g / env on
+// [0, out_len), zero elsewhere (the trim; the pad gets no gradient):
+//
+//   G[f, k] = c_k sum_n u[n] e^{-2 pi i k n / N},  c_k = 1 at k = 0 and M, else 2,
+//
+// since the inverse real DFT weights interior bins twice. It is the forward
+// kernel run the other way: one M-point forward complex FFT of the packed
+// frame z[m] = u[2m] + i u[2m+1], done as the same inverse Stockham passes on
+// conj z (FFT(z) = conj IFFT(conj z)), then the Hermitian unpack
+//
+//   G[k] = (Z[k] + conj Z[M-k]) - i e^{-2 pi i k/N} (Z[k] - conj Z[M-k]),
+//
+// which at k = 0 and M is real: Re Z[0] + Im Z[0] and Re Z[0] - Im Z[0],
+// written with an imaginary part of exactly zero, as the forward kernel
+// drops it there.
+//
+// Tiles: block (b, tile) transforms `frames_per_tile` consecutive frames and
+// first stages the span of g / env they read ((F - 1) hop + N samples) in
+// shared memory. Frames overlap in what they read but each is written by one
+// block only, so there are no atomics. Bound, as the forward: bytes (g read
+// once, G written once); at the main-path sizes the chain of loads, passes
+// and barriers.
+__global__ void __launch_bounds__(THREADS)
+fused_istft_adjoint_kernel(const float* __restrict__ grad,    // (B, length)
+                           const float* __restrict__ tables,  // twiddles (M, 2), then window (N)
+                           const float* __restrict__ env,     // (out_len,) at least
+                           float2* __restrict__ out,          // (B, T_f, M + 1)
+                           int t_f, int log2m, int log2hop, int length, int out_len,
+                           int tiles, int frames_per_tile) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int m_pts = 1 << log2m, n_fft = 2 * m_pts, quarter_m = m_pts / 4;
+  const int hop = 1 << log2hop;
+  // the layout whose size the wrapper computes (AdjointPlan.smem_bytes)
+  float2* tw = smem;                                  // M
+  float2* buf0 = tw + m_pts;                          // frames_per_tile * M
+  float2* buf1 = buf0 + frames_per_tile * m_pts;      // frames_per_tile * M
+  float* win = reinterpret_cast<float*>(buf1 + frames_per_tile * m_pts);  // N
+  float* sig = win + n_fft;                           // (frames_per_tile - 1) * hop + N
+
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int f0 = tile * frames_per_tile;
+  const int nc = min(frames_per_tile, t_f - f0);
+  const int span = (nc - 1) * hop + n_fft;
+  const long long idx0 = (long long)f0 * hop - m_pts;  // waveform index of sig[0]
+  const float* g_b = grad + (size_t)b * length;
+
+  for (int i = threadIdx.x; i < m_pts; i += THREADS) {
+    cp_async8(tw + i, tables + 2 * i);
+    cp_async8(win + 2 * i, tables + n_fft + 2 * i);
+  }
+  for (int e = threadIdx.x; e < span; e += THREADS) {
+    const long long idx = idx0 + e;
+    sig[e] = idx >= 0 && idx < out_len ? g_b[idx] / env[idx] : 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // conj z of each frame, windowed (1/N rides in the window table)
+  for (int i = threadIdx.x; i < nc * m_pts; i += THREADS) {
+    const int lf = i >> log2m, m = i & (m_pts - 1);
+    const float* u = sig + lf * hop + 2 * m;
+    buf0[i] = make_float2(u[0] * win[2 * m], -(u[1] * win[2 * m + 1]));
+  }
+  __syncthreads();
+
+  // the inverse Stockham passes of the forward kernel: radix 2 first where
+  // log2 M is odd, then radix 4 to the end
+  float2* src = buf0;
+  float2* dst = buf1;
+  int s = 1;
+  if (log2m & 1) {
+    const int half_m = m_pts / 2;
+    for (int i = threadIdx.x; i < nc * half_m; i += THREADS) {
+      const int lf = i >> (log2m - 1), r = i & (half_m - 1);
+      const float2* x = src + lf * m_pts;
+      radix2(dst + lf * m_pts + 2 * r, 1, r, tw, m_pts, x[r], x[r + half_m]);
+    }
+    s = 2;
+    float2* done = dst;
+    dst = src;
+    src = done;
+    __syncthreads();
+  }
+  for (; s < m_pts; s *= 4) {
+    for (int i = threadIdx.x; i < nc * quarter_m; i += THREADS) {
+      const int lf = i >> (log2m - 2), r = i & (quarter_m - 1);
+      const int base = r & ~(s - 1);  // pp * s
+      const float2* x = src + lf * m_pts + r;
+      radix4(dst + lf * m_pts + 4 * base + (r - base), s, base, tw, m_pts,
+             x[0], x[quarter_m], x[2 * quarter_m], x[3 * quarter_m]);
+    }
+    float2* done = dst;
+    dst = src;
+    src = done;
+    __syncthreads();
+  }
+
+  // unpack: src holds conj Z of each frame; the tile's frames are
+  // contiguous in `out`, so the stores are coalesced
+  float2* out_t = out + ((size_t)b * t_f + f0) * (m_pts + 1);
+  for (int i = threadIdx.x; i < nc * (m_pts + 1); i += THREADS) {
+    const int lf = i / (m_pts + 1), k = i - lf * (m_pts + 1);
+    const float2* res = src + lf * m_pts;
+    float2 v;
+    if (k == 0) {
+      v = make_float2(res[0].x - res[0].y, 0.f);
+    } else if (k == m_pts) {
+      v = make_float2(res[0].x + res[0].y, 0.f);
+    } else {
+      const float2 a = make_float2(res[k].x, -res[k].y), c = res[m_pts - k];
+      const float2 sum = a + c;
+      const float2 wd = cmul(a - c, make_float2(tw[k].x, -tw[k].y));  // e^{-2 pi i k/N} d
+      v = make_float2(sum.x + wd.y, sum.y - wd.x);
+    }
+    out_t[i] = v;
+  }
+}
+
 int log2_exact(int v) {
   int l = 0;
   while ((1 << l) < v) ++l;
@@ -275,5 +398,32 @@ extern "C" int fused_istft_launch(const float* spec, const float* tables, const 
                        static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float2*>(spec), tables, env, out, t_f, log2n - 1, log2hop, length,
       out_len, t_lo, tiles, rows_per_tile, frames_per_chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad: (batch, length) float32. tables, env: as above. out: (batch, t_f,
+// n_fft/2 + 1) complex64 viewed as interleaved float32. tiles,
+// frames_per_tile, smem_bytes: ops/fused_istft.py `adjoint_plan` and
+// `AdjointPlan.smem_bytes`. Launches on `stream`; returns a cudaError_t.
+extern "C" int fused_istft_adjoint_launch(const float* grad, const float* tables,
+                                          const float* env, float* out, int batch, int t_f,
+                                          int n_fft, int hop, int length, int tiles,
+                                          int frames_per_tile, int smem_bytes, void* stream) {
+  const int log2n = log2_exact(n_fft), log2hop = log2_exact(hop);
+  if (log2n < 6 || log2n > 10 || log2hop < 0 || hop > n_fft || frames_per_tile < 1 ||
+      tiles < 1 || (long long)tiles * frames_per_tile < t_f || smem_bytes < 1 ||
+      smem_bytes > SMEM_LIMIT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long default_len = (long long)(t_f - 1) * hop;
+  const int out_len = length < default_len ? length : static_cast<int>(default_len);
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_istft_adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  fused_istft_adjoint_kernel<<<(unsigned)batch * tiles, THREADS, smem_bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      grad, tables, env, reinterpret_cast<float2*>(out), t_f, log2n - 1, log2hop, length,
+      out_len, tiles, frames_per_tile);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,17 +6,20 @@ from flow2gan_tpu_torch.models.convnext import (  # noqa: F401
     ConvNeXtDecoder,
     sinusoidal_pos_emb,
 )
-from flow2gan_tpu_torch.models.generator import MelAudioGenerator  # noqa: F401
+from flow2gan_tpu_torch.models.generator import FMDraws, MelAudioGenerator  # noqa: F401
 from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU  # noqa: F401
 
-# config keys the inference model is built from; the rest (loss_*,
-# branch_dropout, max_add_noise_scale, ...) configure training
+# config keys the generator is built from: the model's and its FM loss's; the
+# rest (mel_n_fft, conditioning, ...) configure the frontend and the family
 _MODEL_KEYS = (
     "n_ffts", "hop_lengths", "channels", "time_embed_channels", "hidden_factor",
     "conv_kernel_sizes", "num_layers", "use_cond_encoder", "n_mels",
     "mel_hop_length", "cond_enc_channels", "cond_enc_hidden_factor",
     "cond_enc_conv_kernel_size", "cond_enc_num_layers", "use_residual_scale",
-    "init_noise_scale", "pred_x1", "branch_reduction",
+    "init_noise_scale", "pred_x1", "branch_reduction", "sampling_rate",
+    "spec_scaling_loss", "loss_n_filters", "loss_n_fft", "loss_hop_length",
+    "loss_power", "loss_eps", "loss_scale_min", "loss_scale_max",
+    "branch_dropout", "max_add_noise_scale",
 )
 
 

@@ -23,7 +23,7 @@ from flow2gan_tpu_torch.ops.stft import real_to_spec, spec_to_real, stft, stft_l
 from flow2gan_tpu_torch.utils import make_valid_mask
 
 ISTFT_IMPLS = {
-    "auto": fused.fused_istft,  # the kernel for CUDA tensors, plain for CPU ones
+    "auto": fused.fused_istft,  # the kernels for CUDA tensors, plain for CPU ones
     "kernel": fused.istft_kernel,  # raises on a CPU tensor
 }
 
@@ -98,11 +98,12 @@ class ConvNeXtBlock(nn.Module):
         cond: Optional[torch.Tensor] = None,
         time_embed: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
+        gates: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         residual = x
         if mask is not None:
             x = x * mask
-        x = self.norm(self.dwconv(x))
+        x = self.norm(self.dwconv(x), gates)
         if self.cond_proj is not None:
             c = self.cond_proj(cond)
             if self.cond_upsample_factor != 1:
@@ -111,7 +112,7 @@ class ConvNeXtBlock(nn.Module):
             x = x * (1.0 + self.time_embed_proj(time_embed))[:, None, :]
         x = self.pwconv2(self.act(self.pwconv1(x)))
         if self.residual_scale is not None:
-            residual = self.residual_scale(residual)
+            residual = self.residual_scale(residual, gates)
         return x + residual
 
 
@@ -141,10 +142,11 @@ class CondEncoder(nn.Module):
             for _ in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.in_norm(_conv_same(x, self.in_proj.weight, self.in_proj.bias))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                gates: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.in_norm(_conv_same(x, self.in_proj.weight, self.in_proj.bias), gates)
         for block in self.blocks:
-            x = block(x, mask=mask)
+            x = block(x, mask=mask, gates=gates)
         return x
 
 
@@ -197,6 +199,7 @@ class ConvNeXtDecoder(nn.Module):
         cond: torch.Tensor,
         t: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
+        gates: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if self.cond_upsample_factor != 1:
             # trim or zero-pad the native-rate cond so its repeat covers x's
@@ -206,12 +209,12 @@ class ConvNeXtDecoder(nn.Module):
             cond = cond[:, :need] if need <= cond.shape[1] else F.pad(
                 cond, (0, 0, 0, need - cond.shape[1])
             )
-        x = self.in_norm(self.in_proj(x))
+        x = self.in_norm(self.in_proj(x), gates)
         emb = sinusoidal_pos_emb(t, self.time_embed_channels)
         time_embed = self.time_mlp_2(F.silu(self.time_mlp_0(emb)))
         cond = self.cond_mlp_2(self.cond_mlp_1(self.cond_mlp_0(cond)))
         for block in self.blocks:
-            x = block(x, cond=cond, time_embed=time_embed, mask=mask)
+            x = block(x, cond=cond, time_embed=time_embed, mask=mask, gates=gates)
         return self.out_proj(x)
 
 
@@ -219,9 +222,11 @@ class AudioConvNeXt(nn.Module):
     """One resolution branch: wav -> STFT -> ConvNeXt decode -> iSTFT -> wav.
 
     Input audio (B, L), cond (B, T_c, C_c). `istft_impl` picks the iSTFT:
-    "auto" is the fused kernel for CUDA tensors and the plain version for CPU
-    ones, "kernel" the kernel only (a CPU tensor raises). No value sends a
-    CUDA tensor through the plain version.
+    "auto" is the fused kernel (and its adjoint kernel in backward) for CUDA
+    tensors and the plain versions for CPU ones, "kernel" the kernels only (a
+    CPU tensor raises). No value sends a CUDA tensor through the plain
+    version. `gates` (the limiters' training gates, `models/norms.py`) is
+    None in the eval form.
     """
 
     def __init__(
@@ -275,6 +280,7 @@ class AudioConvNeXt(nn.Module):
         cond: torch.Tensor,
         t: torch.Tensor,
         audio_lens: Optional[torch.Tensor] = None,
+        gates: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         length = audio.shape[-1]
         x = spec_to_real(stft(audio, self.n_fft, self.hop_length))  # (B, T_f, n_fft + 2)
@@ -285,7 +291,7 @@ class AudioConvNeXt(nn.Module):
         if audio_lens is not None:
             fft_lens = stft_lens(audio_lens, self.hop_length)
             mask = make_valid_mask(fft_lens, fft_frames)[..., None]
-        x = self.decoder(x, cond=cond, t=t, mask=mask)
+        x = self.decoder(x, cond=cond, t=t, mask=mask, gates=gates)
         if mask is not None:
             x = x * mask
         return ISTFT_IMPLS[self.istft_impl](

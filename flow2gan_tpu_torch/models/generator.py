@@ -1,20 +1,62 @@
 """Mel-conditioned flow-matching generator (endpoint / x1-prediction form),
-inference path; counterpart of `flow2gan_tpu/models/generator.py`.
+counterpart of `flow2gan_tpu/models/generator.py`: the Euler solve that
+serves, and the flow-matching loss that pretrains.
 
 The Euler solve is an unrolled Python loop over 1/2/4 steps. The JAX
 package's scanned and rematerialised rollouts exist only for the TPU
 compiler's limits and are not ported. Conditioning enters as (B, n_mels,
 frames), the reference layout, and is transposed once to channels-last.
+
+The loss's random draws (x0, t, the limiters' gates, the branch-dropout
+weights, the mel noise) are one `FMDraws`: training draws it on the device
+from a `torch.Generator` (`draw`), a test builds it from numpy, since JAX and
+torch draw different numbers from one seed.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from flow2gan_tpu_torch.models.convnext import AudioConvNeXt, CondEncoder
+from flow2gan_tpu_torch.models.norms import number_limiters
+from flow2gan_tpu_torch.ops.mel import linear_fbanks, spectrogram
+from flow2gan_tpu_torch.ops.stft import stft_lens
+from flow2gan_tpu_torch.utils import make_valid_mask
+
+
+@dataclasses.dataclass
+class FMDraws:
+    """The random draws of one flow-matching loss.
+
+    x0: (B, L) noise endpoint, already scaled by `init_noise_scale`;
+    t: (B,) flow times in [0, 1);
+    gates: (n_limiters,) 0/1 floats, or None for the eval form;
+    branch_weight: (B, n_branches) branch-dropout weights, or None;
+    cond_noise: (B, frames, n_mels) noise added to the mels, or None.
+    """
+
+    x0: torch.Tensor
+    t: torch.Tensor
+    gates: Optional[torch.Tensor] = None
+    branch_weight: Optional[torch.Tensor] = None
+    cond_noise: Optional[torch.Tensor] = None
+
+
+def branch_dropout_weight(branch_idx: torch.Tensor, do_drop: torch.Tensor,
+                          num_branches: int) -> torch.Tensor:
+    """(B, num_branches) weights: for the examples where `do_drop` (B, 1) is
+    true, branch `branch_idx` (B,) is zeroed and the others scaled by
+    nb / (nb - 1), so the expectation is unchanged; 1 elsewhere (the JAX
+    package's `process_model`)."""
+    rows = torch.arange(branch_idx.shape[0], device=branch_idx.device)
+    mask = torch.ones(branch_idx.shape[0], num_branches, device=branch_idx.device)
+    mask[rows, branch_idx] = 0.0
+    mask = mask * (num_branches / (num_branches - 1))
+    return torch.where(do_drop, mask, torch.ones_like(mask))
 
 
 class MelAudioGenerator(nn.Module):
@@ -40,6 +82,17 @@ class MelAudioGenerator(nn.Module):
         init_noise_scale: float = 0.1,
         pred_x1: bool = True,
         branch_reduction: str = "mean",
+        sampling_rate: int = 24000,
+        spec_scaling_loss: bool = True,
+        loss_n_filters: int = 256,
+        loss_n_fft: int = 1024,
+        loss_hop_length: int = 256,
+        loss_power: float = 0.5,
+        loss_eps: float = 1e-7,
+        loss_scale_min: float = 1e-2,
+        loss_scale_max: float = 1e2,
+        branch_dropout: float = 0.05,
+        max_add_noise_scale: float = 0.0,
         istft_impl: str = "auto",
     ):
         super().__init__()
@@ -48,10 +101,20 @@ class MelAudioGenerator(nn.Module):
             raise ValueError("per-branch config tuples must all have one entry per branch")
         if branch_reduction not in ("mean", "sum"):
             raise ValueError(f"branch_reduction must be 'mean' or 'sum', got {branch_reduction!r}")
+        self.n_mels = n_mels
         self.mel_hop_length = mel_hop_length
         self.init_noise_scale = init_noise_scale
         self.pred_x1 = pred_x1
         self.branch_reduction = branch_reduction
+        self.spec_scaling_loss = spec_scaling_loss
+        self.loss_n_fft = loss_n_fft
+        self.loss_hop_length = loss_hop_length
+        self.loss_power = loss_power
+        self.loss_eps = loss_eps
+        self.loss_scale_min = loss_scale_min
+        self.loss_scale_max = loss_scale_max
+        self.branch_dropout = branch_dropout
+        self.max_add_noise_scale = max_add_noise_scale
         self.cond_encoder = (
             CondEncoder(
                 cond_dim=n_mels,
@@ -80,6 +143,11 @@ class MelAudioGenerator(nn.Module):
             )
             for i in range(n)
         )
+        # each limiter runs once per loss, so one gate each
+        self.num_limiters = number_limiters(self)
+        fb = linear_fbanks(loss_n_fft // 2 + 1, 0.0, float(sampling_rate // 2), loss_n_filters,
+                           sampling_rate)
+        self.register_buffer("loss_fbank", torch.from_numpy(fb), persistent=False)
 
     def process_model(
         self,
@@ -87,13 +155,98 @@ class MelAudioGenerator(nn.Module):
         cond: torch.Tensor,
         t: torch.Tensor,
         audio_lens: Optional[torch.Tensor] = None,
+        gates: Optional[torch.Tensor] = None,
+        branch_weight: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Run every branch on waveform x (B, L) at flow time t (B,) and fuse
-        (eval form: no branch dropout)."""
+        """Run every branch on waveform x (B, L) at flow time t (B,) and fuse,
+        each example's branches weighted by `branch_weight` (B, n_branches)
+        where branch dropout is on."""
         outs = torch.stack(
-            [est(x, cond, t, audio_lens=audio_lens) for est in self.estimators], dim=1
+            [est(x, cond, t, audio_lens=audio_lens, gates=gates) for est in self.estimators], dim=1
         )
+        if branch_weight is not None:
+            outs = outs * branch_weight[..., None]
         return outs.mean(dim=1) if self.branch_reduction == "mean" else outs.sum(dim=1)
+
+    def _loss_spec(self, audio: torch.Tensor) -> torch.Tensor:
+        """Linear-filterbank power spectrogram, time-major (B, T_s, n_filters)."""
+        return spectrogram(audio, self.loss_n_fft, self.loss_hop_length, power=2.0) @ self.loss_fbank
+
+    def compute_loss(
+        self,
+        pred: torch.Tensor,
+        ref: torch.Tensor,
+        audio_lens: torch.Tensor,
+        gt_audio: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Masked MSE, or with `spec_scaling_loss` the squared error's
+        linear-filterbank power spectrum weighted by (gt power + eps)^-power,
+        clamped to [loss_scale_min, loss_scale_max], which up-weights quiet
+        spectral regions."""
+        err = pred - ref
+        if not self.spec_scaling_loss:
+            mask = make_valid_mask(audio_lens, err.shape[-1])
+            return (err**2 * mask).sum() / mask.sum()
+        if gt_audio is None:
+            raise ValueError("the spectral-energy-scaled loss needs gt_audio")
+        gt_spec = self._loss_spec(gt_audio)
+        err_spec = self._loss_spec(err)
+        mask = make_valid_mask(stft_lens(audio_lens, self.loss_hop_length), err_spec.shape[1])[..., None]
+        spec_scale = torch.clamp((gt_spec + self.loss_eps) ** -self.loss_power,
+                                 min=self.loss_scale_min, max=self.loss_scale_max)
+        return (err_spec * spec_scale * mask).sum() / (mask.sum() * err_spec.shape[-1])
+
+    def flow_matching_loss(
+        self,
+        x0: torch.Tensor,
+        x1: torch.Tensor,
+        cond: torch.Tensor,
+        audio_lens: torch.Tensor,
+        t: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        gates: Optional[torch.Tensor] = None,
+        branch_weight: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """FM loss with the endpoint target at flow time t (B,), drawn from
+        `generator` when not given; cond is encoded, channels-last."""
+        if t is None:
+            t = torch.rand(x0.shape[0], generator=generator, device=x0.device)
+        x = (1.0 - t[:, None]) * x0 + t[:, None] * x1
+        ref = x1 if self.pred_x1 else x1 - x0
+        pred = self.process_model(x, cond, t, audio_lens=audio_lens, gates=gates,
+                                  branch_weight=branch_weight)
+        return self.compute_loss(pred, ref, audio_lens, gt_audio=x1)
+
+    def draw(self, audio: torch.Tensor, n_frames: int, generator: torch.Generator,
+             train: bool = True) -> FMDraws:
+        """The draws of one loss on (B, L) `audio` with `n_frames` mel frames,
+        from `generator` (on audio's device): x0 ~ N(0, init_noise_scale^2),
+        t ~ U(0, 1); in training also the gates (Bernoulli 0.6), branch
+        dropout and the mel noise, as far as the config turns them on."""
+        b, dev = audio.shape[0], audio.device
+        x0 = torch.randn(audio.shape, generator=generator, device=dev) * self.init_noise_scale
+        t = torch.rand(b, generator=generator, device=dev)
+        if not train:
+            return FMDraws(x0, t)
+        gates = (torch.rand(self.num_limiters, generator=generator, device=dev) < 0.6).float()
+        weight = None
+        nb = len(self.estimators)
+        if self.branch_dropout > 0.0 and nb > 1:
+            idx = torch.randint(0, nb, (b,), generator=generator, device=dev)
+            drop = torch.rand(b, 1, generator=generator, device=dev) < self.branch_dropout
+            weight = branch_dropout_weight(idx, drop, nb)
+        noise = None
+        if self.max_add_noise_scale > 0.0:
+            scale = torch.rand(b, 1, 1, generator=generator, device=dev) * self.max_add_noise_scale
+            noise = torch.randn(b, n_frames, self.n_mels, generator=generator, device=dev) * scale
+        return FMDraws(x0, t, gates, weight, noise)
+
+    def forward(self, cond: torch.Tensor, audio: torch.Tensor, audio_lens: torch.Tensor,
+                draws: FMDraws) -> torch.Tensor:
+        """FM loss. cond: (B, n_mels, frames); audio: (B, L)."""
+        cond = self._encode_cond(cond, draws.cond_noise, draws.gates)
+        return self.flow_matching_loss(draws.x0, audio, cond, audio_lens, t=draws.t,
+                                       gates=draws.gates, branch_weight=draws.branch_weight)
 
     def solve(
         self,
@@ -103,7 +256,7 @@ class MelAudioGenerator(nn.Module):
         n_timesteps: int = 1,
         clamp_pred: bool = False,
     ) -> torch.Tensor:
-        """Fixed-grid Euler solve from x0 = noise, unrolled."""
+        """Fixed-grid Euler solve from x0 = noise, unrolled (eval form)."""
         dt = 1.0 / n_timesteps
         x = noise
         for step in range(n_timesteps):
@@ -116,9 +269,12 @@ class MelAudioGenerator(nn.Module):
             x = torch.clamp(x, -1.0, 1.0)
         return x
 
-    def _encode_cond(self, cond: torch.Tensor) -> torch.Tensor:
+    def _encode_cond(self, cond: torch.Tensor, cond_noise: Optional[torch.Tensor] = None,
+                     gates: Optional[torch.Tensor] = None) -> torch.Tensor:
         cond = cond.transpose(-1, -2)  # (B, frames, n_mels)
-        return self.cond_encoder(cond) if self.cond_encoder is not None else cond
+        if cond_noise is not None:
+            cond = cond + cond_noise
+        return self.cond_encoder(cond, gates=gates) if self.cond_encoder is not None else cond
 
     def infer(
         self,

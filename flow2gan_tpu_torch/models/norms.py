@@ -1,40 +1,102 @@
-"""Normalisation primitives in eval form, counterpart of
-`flow2gan_tpu/models/norms.py`. Channels-last: the channel dim is the last
-axis. The training-time parameter limiter (`limit_param_value`) and its
-gates belong to the training path and are not here yet."""
+"""Normalisation primitives, counterpart of `flow2gan_tpu/models/norms.py`.
+Channels-last: the channel dim is the last axis.
+
+Training form: `BiasNorm` and `ChannelScale` pass their learned scale through
+`limit_param_value`, which is the identity forward and in backward flips the
+gradient's sign to push the parameter back into its range, while a per-call
+Bernoulli(0.6) gate is on. The gates of one forward are a tensor `gates` of
+0/1 floats, one per limiter of the model, indexed by each module's
+`gate_index` (the generator numbers them); a test passes its own, training
+draws them on the device (`MelAudioGenerator.draw`), so no gate is read on
+the host. `gates=None` is the eval form.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 
+class LimitParamValue(torch.autograd.Function):
+    """Identity forward; backward as the JAX package's `_limit_value_bwd`:
+    where the gate is on, a positive gradient of an x below `lo` and a
+    negative one of an x above `hi` change sign, so that descent moves x
+    back into [lo, hi]."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, gate: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+        ctx.save_for_backward(x, gate)
+        ctx.bounds = (lo, hi)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, gate = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        active = gate > 0.5
+        flip = ((active & (g > 0) & (x < lo)) | (active & (g < 0) & (x > hi)))
+        return torch.where(flip, -g, g), None, None, None
+
+
+def limit_param_value(x: torch.Tensor, lo: float, hi: float,
+                      gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`x` itself when `gate` is None (eval), else `LimitParamValue`; `gate`
+    is a 0-dim float tensor, 1 for on."""
+    if gate is None:
+        return x
+    return LimitParamValue.apply(x, gate, float(lo), float(hi))
+
+
 class BiasNorm(nn.Module):
     """x * rsqrt(mean((x - bias)^2, channel)) * exp(log_scale), with the
-    statistics in float32."""
+    statistics in float32; log_scale is limited to [-1.5, 1.5] in training."""
+
+    log_scale_min = -1.5
+    log_scale_max = 1.5
 
     def __init__(self, num_channels: int):
         super().__init__()
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.log_scale = nn.Parameter(torch.tensor(1.0))
+        self.gate_index = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
+        log_scale = self.log_scale
+        if gates is not None:
+            log_scale = limit_param_value(log_scale, self.log_scale_min, self.log_scale_max,
+                                          gates[self.gate_index])
         d = (x - self.bias).float()
-        scales = torch.rsqrt((d * d).mean(dim=-1, keepdim=True)) * torch.exp(
-            self.log_scale
-        )
+        scales = torch.rsqrt((d * d).mean(dim=-1, keepdim=True)) * torch.exp(log_scale)
         return x * scales.to(x.dtype)
 
 
 class ChannelScale(nn.Module):
-    """Learned per-channel residual scale."""
+    """Learned per-channel residual scale, limited to [0.5, 1.0] in training."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(channels))
+        self.gate_index = 0
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.scale.to(x.dtype)
+    def forward(self, x: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
+        scale = self.scale
+        if gates is not None:
+            scale = limit_param_value(scale, 0.5, 1.0, gates[self.gate_index])
+        return x * scale.to(x.dtype)
+
+
+LIMITERS = (BiasNorm, ChannelScale)
+
+
+def number_limiters(model: nn.Module) -> int:
+    """Give each limiter of `model` its `gate_index`, in module order; return
+    how many there are (the length of the model's `gates`)."""
+    limiters = [m for m in model.modules() if isinstance(m, LIMITERS)]
+    for i, m in enumerate(limiters):
+        m.gate_index = i
+    return len(limiters)
 
 
 class PReLU(nn.Module):

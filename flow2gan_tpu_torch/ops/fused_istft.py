@@ -1,17 +1,20 @@
-"""Fused iSTFT: the hand-written CUDA kernel `csrc/fused_istft.cu` and its
-wrapper, the port of the Pallas TPU kernel in
-`flow2gan_tpu/ops/pallas_istft.py`.
+"""Fused iSTFT: the hand-written CUDA kernels `csrc/fused_istft.cu` and their
+wrappers, the port of the Pallas TPU kernel in
+`flow2gan_tpu/ops/pallas_istft.py` and of its custom VJP.
 
-`istft_kernel` launches the kernel and takes CUDA tensors only. `fused_istft`
-is what the model calls: it launches the kernel for a CUDA tensor and runs
-the plain version, `istft_plain` (`ops.stft.istft`), only for a CPU tensor.
-`launches` counts the kernel's launches, so a run can show that its path went
-through the kernel.
+`FusedISTFT` is the differentiable iSTFT: for a CUDA tensor its forward
+launches the fused kernel and its backward the adjoint kernel; for a CPU
+tensor they are the plain versions, `istft_plain` (`ops.stft.istft`) and
+`istft_adjoint_plain`. The iSTFT is linear, so the backward needs only the
+shapes. `fused_istft` is what the model calls; `istft_kernel` is the same for
+CUDA tensors only and raises on a CPU one. `launches` and `adjoint_launches`
+count the two kernels' launches, so a run can show that its path went through
+them.
 
-The kernel computes each frame's inverse real DFT as an N/2-point complex
-FFT. What it reads besides the spectrogram and the envelope comes from here:
-the twiddle and window tables (`kernel_tables_np`) and the cut of the work
-into blocks (`tile_plan`).
+The kernels compute each frame's real DFT as an N/2-point complex FFT. What
+they read besides the spectrogram or the gradient and the envelope comes from
+here: the twiddle and window tables (`kernel_tables_np`) and the cut of the
+work into blocks (`tile_plan`, `adjoint_plan`).
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ import torch
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops.stft import const_tensor, envelope, hann_window_np
 from flow2gan_tpu_torch.ops.stft import istft as istft_plain
+from flow2gan_tpu_torch.ops.stft import istft_adjoint as istft_adjoint_plain
 
 launches = 0
+adjoint_launches = 0
 
 N_FFTS = (64, 128, 256, 512, 1024)
 # The tile rule, tuned on an H100 at the six main-path shapes (PERF.md):
@@ -56,6 +61,10 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.fused_istft_launch.restype = ctypes.c_int
+    lib.fused_istft_adjoint_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p
+    ]
+    lib.fused_istft_adjoint_launch.restype = ctypes.c_int
     return lib
 
 
@@ -145,29 +154,69 @@ def tile_plan(batch: int, t_f: int, n_fft: int, hop_length: int, length: int,
                                frames_per_chunk=min(max_frames, rows_per_tile + plan.k - 1))
 
 
-def istft_kernel(
-    spec: torch.Tensor, n_fft: int, hop_length: int, length: Optional[int] = None
-) -> torch.Tensor:
-    """Launch the fused iSTFT kernel: complex64 (B, T_f, n_fft//2+1) on the
-    card -> float32 (B, length), the same function as `istft_plain`."""
-    global launches
-    if spec.device.type != "cuda":
-        raise ValueError(f"istft_kernel needs a CUDA tensor, got one on {spec.device}")
-    if spec.dtype != torch.complex64:
-        raise TypeError(f"istft_kernel takes complex64, got {spec.dtype}")
-    if spec.ndim != 3 or spec.shape[-1] != n_fft // 2 + 1:
-        raise ValueError(f"expected (B, T_f, {n_fft // 2 + 1}), got {tuple(spec.shape)}")
-    if not spec.is_contiguous():
-        raise ValueError("istft_kernel needs a contiguous spectrogram")
+@dataclasses.dataclass(frozen=True)
+class AdjointPlan:
+    """How the adjoint kernel cuts its work into blocks: block (b, tile)
+    transforms frames [tile * frames_per_tile, (tile + 1) * frames_per_tile)
+    of batch entry b, the last tile fewer, and writes each of their bins
+    once. `tests/test_torch_port_train.py` mirrors the kernel on this
+    map."""
+
+    n_fft: int
+    hop: int
+    t_f: int
+    frames_per_tile: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.t_f // self.frames_per_tile)
+
+    @property
+    def span(self) -> int:
+        """Waveform samples a full tile reads: its frames overlap."""
+        return (self.frames_per_tile - 1) * self.hop + self.n_fft
+
+    @property
+    def smem_bytes(self) -> int:
+        """The dynamic shared memory of one block (the layout at the top of
+        `fused_istft_adjoint_kernel`): the twiddles, two frame buffers, the
+        window and the tile's span of the waveform's gradient."""
+        return 4 * self.n_fft + 8 * self.frames_per_tile * self.n_fft + 4 * self.n_fft + 4 * self.span
+
+
+@functools.lru_cache(maxsize=256)
+def adjoint_plan(batch: int, t_f: int, n_fft: int, hop_length: int, sm_count: int) -> AdjointPlan:
+    """Frames per tile: as many as leave BLOCKS_PER_SM blocks for each of the
+    card's `sm_count` SMs, within FRAME_BUFFER_BYTES of frame buffers. No
+    frame is transformed twice: the tiles share only what they read."""
+    max_frames = FRAME_BUFFER_BYTES // (8 * n_fft)
+    per_tile = -(-batch * t_f // (BLOCKS_PER_SM * sm_count))
+    return AdjointPlan(n_fft, hop_length, t_f, min(max(per_tile, 1), max_frames, t_f))
+
+
+def _check_cuda(x: torch.Tensor, name: str, dtype: torch.dtype, n_fft: int, hop_length: int):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got one on {x.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} takes {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
     if not supported(n_fft, hop_length):
         raise NotImplementedError(f"fused iSTFT takes n_fft in {N_FFTS} with n_fft % hop == 0, "
                                   f"got ({n_fft}, {hop_length})")
-    if spec.device.index != torch.cuda.current_device():
-        raise ValueError(f"spectrogram is on {spec.device}, current device is "
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}'s input is on {x.device}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
+
+
+def _launch_istft(spec: torch.Tensor, n_fft: int, hop_length: int, length: int) -> torch.Tensor:
+    """Launch the fused iSTFT kernel: complex64 (B, T_f, n_fft//2+1) on the
+    card -> float32 (B, length), the same function as `istft_plain`."""
+    global launches
+    _check_cuda(spec, "istft_kernel", torch.complex64, n_fft, hop_length)
+    if spec.ndim != 3 or spec.shape[-1] != n_fft // 2 + 1:
+        raise ValueError(f"expected (B, T_f, {n_fft // 2 + 1}), got {tuple(spec.shape)}")
     batch, t_f, n_freq = spec.shape
-    if length is None:
-        length = (t_f - 1) * hop_length
     if batch < 1 or t_f < 1 or length < 1:
         raise ValueError(f"empty iSTFT: batch {batch}, frames {t_f}, length {length}")
     sm_count = torch.cuda.get_device_properties(spec.device).multi_processor_count
@@ -187,10 +236,69 @@ def istft_kernel(
     return out
 
 
+def istft_adjoint_kernel(grad: torch.Tensor, t_f: int, n_fft: int, hop_length: int) -> torch.Tensor:
+    """Launch the adjoint kernel: float32 (B, length) on the card -> complex64
+    (B, t_f, n_fft//2+1), the same function as `istft_adjoint_plain`."""
+    global adjoint_launches
+    _check_cuda(grad, "istft_adjoint_kernel", torch.float32, n_fft, hop_length)
+    if grad.ndim != 2:
+        raise ValueError(f"expected a (B, length) gradient, got {tuple(grad.shape)}")
+    batch, length = grad.shape
+    if batch < 1 or t_f < 1 or length < 1:
+        raise ValueError(f"empty iSTFT adjoint: batch {batch}, frames {t_f}, length {length}")
+    sm_count = torch.cuda.get_device_properties(grad.device).multi_processor_count
+    plan = adjoint_plan(batch, t_f, n_fft, hop_length, sm_count)
+    tables = _kernel_tables(n_fft, grad.device)
+    env = envelope(t_f, n_fft, hop_length, grad.device)
+    out = torch.empty(batch, t_f, n_fft // 2 + 1, dtype=torch.complex64, device=grad.device)
+    err = _library().fused_istft_adjoint_launch(
+        grad.data_ptr(), tables.data_ptr(), env.data_ptr(), torch.view_as_real(out).data_ptr(),
+        batch, t_f, n_fft, hop_length, length, plan.tiles, plan.frames_per_tile,
+        plan.smem_bytes, torch.cuda.current_stream(grad.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_istft_adjoint launch failed: cudaError {err}")
+    adjoint_launches += 1
+    return out
+
+
+class FusedISTFT(torch.autograd.Function):
+    """The differentiable iSTFT: the kernels for a CUDA tensor, the plain
+    versions for a CPU one (there is no other route: a CUDA tensor that the
+    kernels refuse raises). Saves only the geometry, as the iSTFT is linear
+    (the JAX package's `_istft_pallas_diff_fwd` saves only the shape)."""
+
+    @staticmethod
+    def forward(ctx, spec: torch.Tensor, n_fft: int, hop_length: int,
+                length: Optional[int]) -> torch.Tensor:
+        t_f = spec.shape[-2]
+        ctx.geometry = (t_f, n_fft, hop_length)
+        if spec.device.type == "cpu":
+            return istft_plain(spec, n_fft, hop_length, length=length)
+        return _launch_istft(spec, n_fft, hop_length,
+                             (t_f - 1) * hop_length if length is None else length)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        t_f, n_fft, hop_length = ctx.geometry
+        if grad.device.type == "cpu":
+            return istft_adjoint_plain(grad, t_f, n_fft, hop_length), None, None, None
+        # the incoming gradient may be a strided view (a transpose, a slice)
+        return istft_adjoint_kernel(grad.contiguous(), t_f, n_fft, hop_length), None, None, None
+
+
+def istft_kernel(
+    spec: torch.Tensor, n_fft: int, hop_length: int, length: Optional[int] = None
+) -> torch.Tensor:
+    """The fused iSTFT for a CUDA tensor only: the forward and the adjoint
+    kernels (`FusedISTFT`); raises on a CPU tensor."""
+    if spec.device.type != "cuda":
+        raise ValueError(f"istft_kernel needs a CUDA tensor, got one on {spec.device}")
+    return FusedISTFT.apply(spec, n_fft, hop_length, length)
+
+
 def fused_istft(
     spec: torch.Tensor, n_fft: int, hop_length: int, length: Optional[int] = None
 ) -> torch.Tensor:
-    """The kernel for a CUDA tensor; the plain version for a CPU tensor."""
-    if spec.device.type == "cpu":
-        return istft_plain(spec, n_fft, hop_length, length=length)
-    return istft_kernel(spec, n_fft, hop_length, length=length)
+    """The kernels for a CUDA tensor; the plain versions for a CPU tensor."""
+    return FusedISTFT.apply(spec, n_fft, hop_length, length)

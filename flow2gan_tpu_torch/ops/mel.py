@@ -1,5 +1,6 @@
-"""Mel frontend in PyTorch, counterpart of `flow2gan_tpu/ops/mel.py`: HTK mel
-scale, norm=None (torchaudio's `MelSpectrogram` defaults)."""
+"""Mel frontend and the FM loss's linear filterbank in PyTorch, counterpart
+of `flow2gan_tpu/ops/mel.py`: HTK mel scale, norm=None (torchaudio's
+`MelSpectrogram` defaults)."""
 
 from __future__ import annotations
 
@@ -21,20 +22,34 @@ def _mel_to_hz(mel) -> np.ndarray:
     return 700.0 * (10.0 ** (np.asarray(mel, dtype=np.float64) / 2595.0) - 1.0)
 
 
-@functools.lru_cache(maxsize=32)
-def melscale_fbanks(
-    n_freqs: int, f_min: float, f_max: float, n_mels: int, sample_rate: int
-) -> np.ndarray:
-    """HTK triangular mel filterbank (n_freqs, n_mels), computed in float64
-    and cast to float32."""
-    all_freqs = np.linspace(0.0, sample_rate // 2, n_freqs)
-    m_pts = np.linspace(_hz_to_mel(f_min), _hz_to_mel(f_max), n_mels + 2)
-    f_pts = _mel_to_hz(m_pts)
+def _triangular_filterbank(all_freqs: np.ndarray, f_pts: np.ndarray) -> np.ndarray:
+    """Triangular filters (n_freqs, len(f_pts) - 2) with corners f_pts, in
+    float64, cast to float32 (torchaudio's formulation)."""
     f_diff = f_pts[1:] - f_pts[:-1]
     slopes = f_pts[None, :] - all_freqs[:, None]
     down = (-1.0 * slopes[:, :-2]) / f_diff[:-1]
     up = slopes[:, 2:] / f_diff[1:]
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def melscale_fbanks(
+    n_freqs: int, f_min: float, f_max: float, n_mels: int, sample_rate: int
+) -> np.ndarray:
+    """HTK triangular mel filterbank (n_freqs, n_mels)."""
+    all_freqs = np.linspace(0.0, sample_rate // 2, n_freqs)
+    m_pts = np.linspace(_hz_to_mel(f_min), _hz_to_mel(f_max), n_mels + 2)
+    return _triangular_filterbank(all_freqs, _mel_to_hz(m_pts))
+
+
+@functools.lru_cache(maxsize=32)
+def linear_fbanks(
+    n_freqs: int, f_min: float, f_max: float, n_filter: int, sample_rate: int
+) -> np.ndarray:
+    """Linear-frequency triangular filterbank (n_freqs, n_filter), as
+    torchaudio's `linear_fbanks`: the filters of the spectral-scaled FM loss."""
+    all_freqs = np.linspace(0.0, sample_rate // 2, n_freqs)
+    return _triangular_filterbank(all_freqs, np.linspace(f_min, f_max, n_filter + 2))
 
 
 def spectrogram(audio: torch.Tensor, n_fft: int, hop_length: int, power: float = 2.0):

@@ -7,8 +7,9 @@ freq). Semantics match `torch.stft` / `torch.istft` with ``center=True``, a
 periodic Hann window and onesided output.
 
 `istft` here is the plain version of the fused iSTFT kernel
-(`ops/fused_istft.py`): the CPU runs it, and on the card it is the oracle the
-kernel is held against.
+(`ops/fused_istft.py`), and `istft_adjoint` that of its adjoint kernel: the
+CPU runs them, and on the card they are the oracles the kernels are held
+against.
 """
 
 from __future__ import annotations
@@ -161,6 +162,28 @@ def istft(
         else:
             y = F.pad(y, (0, length - default_len))
     return y
+
+
+def istft_adjoint(grad: torch.Tensor, n_frames: int, n_fft: int, hop_length: int) -> torch.Tensor:
+    """The adjoint of `istft`: the gradient of a waveform (B, length) ->
+    the gradient of the spectrogram, complex64 (B, n_frames, n_fft//2 + 1),
+    as d/dRe + i d/dIm (PyTorch's convention for a real loss).
+
+    `istft` is linear, so this is its transpose, step by step backwards:
+    divide by the envelope, trim or zero-pad to the default length, place on
+    the centred grid of the overlap-added signal, cut into frames at `hop`,
+    multiply by the window and by A^T and B^T. The pad past the default
+    length gets no gradient. It is the oracle of the adjoint kernel
+    (`ops/fused_istft.py`).
+    """
+    window, A, B = _istft_consts(n_fft, grad.device)
+    default_len = (n_frames - 1) * hop_length
+    out_len = min(grad.shape[-1], default_len)
+    g = grad[:, :out_len] / envelope(n_frames, n_fft, hop_length, grad.device)[:out_len]
+    half = n_fft // 2
+    full = F.pad(g, (half, half + default_len - out_len))  # (B, default_len + n_fft)
+    frames = full.unfold(-1, n_fft, hop_length) * window  # (B, n_frames, n_fft)
+    return torch.complex(frames @ A.T, frames @ B.T)
 
 
 def spec_to_real(spec: torch.Tensor) -> torch.Tensor:

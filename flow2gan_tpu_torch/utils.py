@@ -4,8 +4,13 @@ JAX package)."""
 
 from __future__ import annotations
 
+import argparse
+import collections
 import json
+import logging
+import os
 import pathlib
+from datetime import datetime
 
 import torch
 
@@ -64,3 +69,50 @@ class AttributeDict(dict):
                 v = str(v)
             tmp[k] = v
         return json.dumps(tmp, indent=indent, sort_keys=True)
+
+
+def str2bool(v):
+    """argparse-friendly bool parser."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
+def setup_logger(log_filename) -> None:
+    """Log INFO and above to `log_filename`-<date-time> and to the console."""
+    formatter = "%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s"
+    log_filename = f"{log_filename}-{datetime.now().strftime('%Y-%m-%d-%H-%M-%S')}"
+    os.makedirs(os.path.dirname(log_filename), exist_ok=True)
+    logging.basicConfig(filename=log_filename, format=formatter, level=logging.INFO,
+                        filemode="w", force=True)
+    console = logging.StreamHandler()
+    console.setFormatter(logging.Formatter(formatter))
+    logging.getLogger("").addHandler(console)
+
+
+class MetricsTracker(collections.defaultdict):
+    """Sample-weighted metric sums (plain floats); `str` prints each per
+    sample."""
+
+    def __init__(self):
+        super().__init__(int)
+
+    def __add__(self, other: "MetricsTracker") -> "MetricsTracker":
+        ans = MetricsTracker()
+        for k, v in self.items():
+            ans[k] = v
+        for k, v in other.items():
+            ans[k] = ans[k] + v
+        return ans
+
+    def norm_items(self):
+        samples = self["samples"] if "samples" in self else 1
+        return [(k, float(v) / samples) for k, v in self.items() if k != "samples"]
+
+    def __str__(self) -> str:
+        ans = "".join(f"{k}={v:.4g}, " for k, v in self.norm_items())
+        return ans + f"over {self['samples']:.2f} samples."

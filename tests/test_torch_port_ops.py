@@ -87,18 +87,27 @@ def test_plain_istft_matches_pallas_interpret(n_fft, hop, length):
 def _fft_frames(spec: np.ndarray, n_fft):
     """The kernel's per-frame arithmetic in numpy complex64, vectorised over
     frames: the Hermitian pack into M = n_fft/2 points, the Stockham passes
-    in the kernel's order (radix 2 first where log2 M is odd, else radix 4,
-    then radix 4), and the even/odd unpack (the complex result read as
-    floats). Returns (..., n_fft) frames, unwindowed and scaled by n_fft."""
+    (`_stockham_inverse`), and the even/odd unpack (the complex result read
+    as floats). Returns (..., n_fft) frames, unwindowed and scaled by n_fft."""
     twiddles, _ = fused.kernel_tables_np(n_fft)
     half = (twiddles[:, 0] + 1j * twiddles[:, 1]).astype(np.complex64)
-    tw = np.concatenate([half, -half])  # the kernel's e^{i (theta + pi)} = -e^{i theta}
     m_pts = n_fft // 2
     x = spec.astype(np.complex64)  # a copy
     x[..., 0] = x[..., 0].real  # the imaginary parts at DC and Nyquist are dropped
     x[..., m_pts] = x[..., m_pts].real
     xm, xc = x[..., :m_pts], np.conj(x[..., m_pts:0:-1])  # X[m], conj X[M - m]
-    z = (xm + xc) + 1j * half * (xm - xc)
+    z = _stockham_inverse((xm + xc) + 1j * half * (xm - xc), n_fft)
+    return np.stack([z.real, z.imag], axis=-1).reshape(*z.shape[:-1], n_fft)
+
+
+def _stockham_inverse(z: np.ndarray, n_fft):
+    """The kernels' Stockham passes over the last axis, M = n_fft/2 points
+    (radix 2 first where log2 M is odd, else radix 4, then radix 4), with
+    twiddles from their table: the unnormalised inverse FFT of z."""
+    twiddles, _ = fused.kernel_tables_np(n_fft)
+    half = (twiddles[:, 0] + 1j * twiddles[:, 1]).astype(np.complex64)
+    tw = np.concatenate([half, -half])  # the kernel's e^{i (theta + pi)} = -e^{i theta}
+    m_pts = n_fft // 2
     log2m = int(np.log2(m_pts))
     s = 1
     for radix in [2 if log2m % 2 else 4] + [4] * ((log2m - 1) // 2):
@@ -117,7 +126,7 @@ def _fft_frames(spec: np.ndarray, n_fft):
             y[..., radix * base + (r - base) + j * s] = outs[j] * tw[2 * j * base]
         z, s = y, s * radix
     assert s == m_pts
-    return np.stack([z.real, z.imag], axis=-1).reshape(*z.shape[:-1], n_fft)
+    return z
 
 
 def _tile(plan: fused.TilePlan, i):
