@@ -41,7 +41,23 @@ prints no result line):
    second and peak memory; the checkpoints reloaded; `save_averaged_model`
    and a 1-step call served from the averaged weights; the device-time
    breakdown of one training step by family;
-11. the `kernels` JSON line, then the card line and the result line.
+11. bf16 serving: mel_24k_base with `compute_dtype="bfloat16"` on the seed
+   weights of phase 5, at 1, 2 and 4 steps (launches, then ms per call and
+   x-real-time beside the float32 model's in the same phase), card bf16
+   against card float32, card bf16 against CPU bf16 (the limit: 1/4 of the
+   CPU's bf16 distance from float32, plus twice how far the CPU's bf16
+   result moves when x0 moves by one float32 ulp), and one 1-step call's
+   device time by family, float32 and bf16 GEMMs apart;
+12. 44.1 kHz card against CPU: mel_44k_128band_512x_base, float32, 1 step;
+13. bf16 training: `bin/pretrain.py --use-bf16` for 8 steps on half the
+   corpus (loss curve, step times, audio per second, peak memory, launches
+   of both kernels);
+14. the CLIs: `bin/infer --epoch 2 --avg 1` over phase 10's checkpoints and
+   a manifest of corpus files, `bin/infer_dir` on a directory of them, whole
+   and in 50-frame chunks; lengths, finiteness, chunked against whole, and
+   the native WAV reader in use;
+15. the `kernels` JSON line (each kernel's launches on every path), then the
+   card line and the result line.
 """
 
 from __future__ import annotations
@@ -49,6 +65,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -60,10 +77,15 @@ import numpy as np
 import torch
 
 from flow2gan_tpu_torch import get_model
-from flow2gan_tpu_torch.api import init_weights
-from flow2gan_tpu_torch.bin import pretrain, save_averaged_model
-from flow2gan_tpu_torch.data.audio_io import write_wav
-from flow2gan_tpu_torch.data.dataset import Recording, write_recording_manifest
+from flow2gan_tpu_torch.api import VocoderModel, init_weights
+from flow2gan_tpu_torch.bin import infer, infer_dir, pretrain, save_averaged_model
+from flow2gan_tpu_torch.data import native_audio
+from flow2gan_tpu_torch.data.audio_io import read_wav, write_wav
+from flow2gan_tpu_torch.data.dataset import (
+    Recording,
+    read_recording_manifest,
+    write_recording_manifest,
+)
 from flow2gan_tpu_torch.models import FMDraws, build_generator, get_generator_config
 from flow2gan_tpu_torch.models.generator import branch_dropout_weight
 from flow2gan_tpu_torch.ops import cuda_build
@@ -91,6 +113,7 @@ CARD_VS_CPU_TOL = 1e-4  # whole model, relative to max|CPU|
 LOSS_TOL = 1e-6  # relative
 GRAD_TOL = 2.5e-4  # |grad_card - grad_cpu| / |grad_cpu| over all parameters
 GRAD_TENSOR_TOL = 1e-2  # the same for each parameter tensor
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"  # read, then deleted
 TIMED_SAMPLES = 25
 TIMED_CALLS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms of GPU spin ahead of each timed sample
@@ -323,7 +346,8 @@ def time_calls(fn, calls: int = TIMED_CALLS):
 
 def main_path(card: str, model, mel):
     """Serve mel_24k_base at 1/2/4 steps; returns the kernel's launches over
-    one call at each step count, and the median ms of a 1-step call."""
+    one call at each step count, the median ms of a 1-step call, and the
+    launches of one 1-step mel_44k_128band_512x_base call."""
     fused.launches = fused.adjoint_launches = 0
     for n in (1, 2, 4):
         before = fused.launches
@@ -354,17 +378,17 @@ def main_path(card: str, model, mel):
 
     model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
     mel44 = torch.from_numpy(np.random.RandomState(1).randn(16, 128, 87).astype(np.float32))
-    before = fused.launches
+    fused.launches = 0
     wav = model44.infer(mel44, n_timesteps=1)
     torch.cuda.synchronize()
-    if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or fused.launches - before != 3:
-        raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, "
-                             f"{fused.launches - before} launches")
+    launches44 = fused.launches
+    if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or launches44 != 3:
+        raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, {launches44} launches")
     ms = time_calls(lambda: model44.infer(mel44, n_timesteps=1), calls=5)
     print("44.1 kHz: mel_44k_128band_512x_base 1 step, batch 16 " + json.dumps(
         {"ms_median": statistics.median(ms), "x_real_time_median":
          16 * 44544 / 44100 / statistics.median(ms) * 1e3, "card": card}))
-    return launches, median_ms[1]
+    return launches, median_ms[1], launches44
 
 
 def card_vs_cpu():
@@ -388,39 +412,79 @@ def card_vs_cpu():
             raise AssertionError(f"card and CPU disagree at {n} steps: {rel}")
 
 
-def profile_one_call(card: str, model, mel, wall_ms: float):
-    """Device time of one 1-step mel_24k_base call by kernel family, and the
-    device's busy share against the unprofiled median call time."""
+_GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+_DTYPES = {"float": "fp32", "c10::BFloat16": "bf16", "c10::Half": "fp16"}
+# kernel names of GEMMs (cuBLAS, cuBLASLt and CUTLASS kernels, split-K reductions)
+_GEMM_NAMES = re.compile(r"gemm|nvjet|xmma|cutlass|splitkreduce", re.IGNORECASE)
+
+
+def gemm_ms_by_dtype(prof, trace: Path) -> dict:
+    """Device ms, kernels and ops of the GEMMs in a profile, by the input
+    dtype of the matmul op that launched each kernel (the trace links a
+    kernel to its op by "External id"; the op's "Input type" comes with
+    record_shapes). One op may launch two kernels (split-K)."""
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    ops = {e["args"]["External id"]: e["args"].get("Input type", ["?"])[0]
+           for e in events if e.get("cat") == "cpu_op" and e.get("name") in _GEMM_OPS
+           and "External id" in e.get("args", {})}
+    out, seen = {}, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ext = e.get("args", {}).get("External id")
+        if ext in ops:
+            key = _DTYPES.get(ops[ext], ops[ext])
+            row = out.setdefault(key, {"ms": 0.0, "kernels": 0, "ops": 0})
+            row["ms"] += e["dur"] / 1e3
+            row["kernels"] += 1
+            seen.setdefault(key, set()).add(ext)
+    for key, exts in seen.items():
+        out[key]["ops"] = len(exts)
+    return out
+
+
+def _dev_us(e):  # the attribute's name differs across torch versions
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
+def _family(name: str) -> str:
+    for key in ("fused_istft_adjoint", "fused_istft", "conv_depthwise"):
+        if key in name:
+            return key
+    return "gemm" if _GEMM_NAMES.search(name) else "elementwise, reductions, copies"
+
+
+def profile_one_call(card: str, model, mel, wall_ms: float, label: str) -> dict:
+    """Device time of one 1-step call by kernel family, the GEMMs split by
+    input dtype, and the device's busy share against the unprofiled median
+    call time; returns the GEMM split."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         model.infer(mel, n_timesteps=1)
         torch.cuda.synchronize()
 
-    def dev_us(e):  # the attribute's name differs across torch versions
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    def family(name):
-        for key in ("fused_istft", "gemm", "conv_depthwise"):
-            if key in name:
-                return key
-        return "elementwise, reductions, copies"
-
-    kernels = [(dev_us(e), e.key, e.count) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    kernels = [(_dev_us(e), e.key, e.count) for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
     total_ms = sum(k[0] for k in kernels) / 1e3
     families = {}
     for us, name, _ in kernels:
-        families[family(name)] = families.get(family(name), 0.0) + us / 1e3
-    print("profile 1 step " + json.dumps({
+        families[_family(name)] = families.get(_family(name), 0.0) + us / 1e3
+    gemms = gemm_ms_by_dtype(prof, TRACE_DIR / f"1step_{label}.json")
+    print(f"profile 1 step {label} " + json.dumps({
         "device_ms": total_ms, "call_ms_median_unprofiled": wall_ms,
         "device_busy_share": total_ms / wall_ms if total_ms else "not measured",
         "device_events": sum(k[2] for k in kernels),
-        "by_family_ms": families,
-        "top": [{"name": name[:80], "ms": us / 1e3, "count": count}
-                for us, name, count in sorted(kernels, reverse=True)[:8]],
+        "by_family_ms": families, "gemm_by_input_dtype": gemms,
+        "top": [{"name": name[:100], "ms": us / 1e3, "count": count}
+                for us, name, count in sorted(kernels, reverse=True)[:12]],
         "card": card,
     }))
+    return gemms
 
 
 def voiced(rng: np.random.RandomState, batch: int, length: int, sr: int = 24000) -> np.ndarray:
@@ -503,35 +567,29 @@ def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
     return manifest
 
 
-def device_families(fn) -> dict:
-    """Device ms by kernel family of what fn() runs (torch.profiler)."""
+def device_families(fn, trace: Path = None):
+    """Device ms by kernel family of what fn() runs (torch.profiler), and
+    with `trace` also the GEMMs by input dtype."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=trace is not None) as prof:
         fn()
         torch.cuda.synchronize()
-
-    def dev_us(e):  # the attribute's name differs across torch versions
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-    def family(name):
-        for key in ("fused_istft_adjoint", "fused_istft", "gemm", "conv_depthwise"):
-            if key in name:
-                return key
-        return "elementwise, reductions, copies"
-
     families = {}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and dev_us(e) > 0:
-            families[family(e.key)] = families.get(family(e.key), 0.0) + dev_us(e) / 1e3
-    return families
+        if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0:
+            families[_family(e.key)] = families.get(_family(e.key), 0.0) + _dev_us(e) / 1e3
+    return families, (gemm_ms_by_dtype(prof, trace) if trace is not None else None)
 
 
-def profile_train_step(card: str, step_ms: float) -> None:
+def profile_train_step(card: str, step_ms: float, compute_dtype=None) -> None:
     """The device time of one mel_24k_base training step (batch 16 x 1.5 s)
-    by family, the optimizer's part measured alone, and the busy share
-    against the trainer's median step."""
+    by family, the GEMMs by input dtype, the optimizer's part measured alone,
+    and the busy share against the trainer's median step."""
     cfg = get_generator_config("mel_24k_base")
+    cfg["compute_dtype"] = compute_dtype
+    label = compute_dtype or "float32"
     model = init_weights(build_generator(cfg), torch.Generator().manual_seed(1)).cuda()
     mel_fn = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100).cuda()
     optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
@@ -548,10 +606,10 @@ def profile_train_step(card: str, step_ms: float) -> None:
         begin = time.perf_counter()
         float(step(i)["loss"])
         wall.append((time.perf_counter() - begin) * 1e3)
-    step_fams = device_families(lambda: step(8))
+    step_fams, gemms = device_families(lambda: step(8), TRACE_DIR / f"train_step_{label}.json")
     model(mel_fn(audio), audio, batch["audio_lens"],
           model.draw(audio, 141, step_generator(0, 9, "cuda"))).backward()
-    opt_ms = sum(device_families(lambda: optimizer.step(1e-3)).values())
+    opt_ms = sum(device_families(lambda: optimizer.step(1e-3))[0].values())
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     model(mel_fn(audio), audio, batch["audio_lens"],
           model.draw(audio, 141, step_generator(0, 10, "cuda"))).backward()
@@ -567,8 +625,9 @@ def profile_train_step(card: str, step_ms: float) -> None:
     key = "elementwise, reductions, copies"
     step_fams[key] = step_fams.get(key, 0.0) - opt_ms
     step_fams["optimizer (ScaledAdam, measured alone)"] = opt_ms
-    print("profile train step " + json.dumps({
-        "config": "mel_24k_base", "batch": 16, "seconds_per_item": 1.5, "device_ms": total,
+    print(f"profile train step {label} " + json.dumps({
+        "config": "mel_24k_base", "compute_dtype": label, "batch": 16, "seconds_per_item": 1.5,
+        "device_ms": total, "gemm_by_input_dtype": gemms,
         "step_ms_median_unprofiled": step_ms, "device_busy_share": total / step_ms,
         "step_ms_median_without_loader": statistics.median(wall),
         "by_family_ms": step_fams, "optimizer_share_of_device_ms": opt_ms / total,
@@ -577,9 +636,10 @@ def profile_train_step(card: str, step_ms: float) -> None:
             sum(len(g.params) for g in optimizer.groups), "card": card}))
 
 
-def trainer(card: str, root: Path) -> dict:
-    """mel_24k_base trained through the port's bin/pretrain.py; returns the
-    two kernels' launches over the run."""
+def trainer(card: str, root: Path):
+    """mel_24k_base trained through the port's bin/pretrain.py on a corpus
+    written under `root`; returns the two kernels' launches over the run, the
+    experiment directory and the averaged model's path."""
     shutil.rmtree(root, ignore_errors=True)
     train = write_corpus(root / "train", 16 * TRAIN_STEPS // 2, 2.0, seed=21)
     valid = write_corpus(root / "valid", 16, 2.0, seed=22)
@@ -633,7 +693,216 @@ def trainer(card: str, root: Path) -> dict:
     print(f"trainer checkpoints: epoch-2 and checkpoint-{steps} reload; averaged model "
           f"{out.name} serves a 1-step call of {tuple(wav.shape)}, finite, 3 launches")
     profile_train_step(card, med)
-    shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
+    return launches, exp, out
+
+
+def bf16_vocoder(device: str) -> VocoderModel:
+    """mel_24k_base in bf16, built as the JAX package builds it (a config with
+    compute_dtype, then build_generator) on get_model's seed-0 weights."""
+    cfg = get_generator_config("mel_24k_base")
+    cfg["compute_dtype"] = "bfloat16"
+    module = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
+    return VocoderModel(module.to(device), cfg, torch.device(device))
+
+
+def rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def bf16_card_vs_cpu(card: str) -> None:
+    """Card bf16 against CPU bf16 through infer_from_noise at batch 2, with
+    the same weights and x0. Card and CPU round their float32 parts (the
+    STFT's DFT matmuls) in another order, which flips some bf16 casts, so the
+    limit is that of the CPU tests: 1/4 of the CPU's bf16 distance from its
+    float32 result, plus twice how far the CPU's bf16 result moves when x0
+    moves by one float32 ulp."""
+    gpu, cpu = bf16_vocoder("cuda").module, bf16_vocoder("cpu").module
+    cpu32 = get_model("mel_24k_base", device="cpu", seed=0).module
+    rng = np.random.RandomState(2)
+    cond = torch.from_numpy(rng.randn(2, 100, 94).astype(np.float32))
+    x0 = (0.1 * rng.randn(2, 24064)).astype(np.float32)
+    with torch.inference_mode():
+        fused.launches = 0
+        card16 = gpu.infer_from_noise(torch.from_numpy(x0).cuda(), cond.cuda()).cpu()
+        if fused.launches != 3:
+            raise AssertionError("the card's bf16 run did not go through the kernel")
+        cpu16 = cpu.infer_from_noise(torch.from_numpy(x0), cond)
+        cpu32_out = cpu32.infer_from_noise(torch.from_numpy(x0), cond)
+        floor = max(rms(cpu.infer_from_noise(torch.from_numpy(
+            np.nextafter(x0, np.float32(to)).astype(np.float32)), cond), cpu16)
+                    for to in (np.inf, -np.inf))
+    err, noise = rms(card16, cpu16), rms(cpu16, cpu32_out)
+    limit = noise / 4 + 2 * floor
+    print("bf16 card vs CPU 1 step, batch 2 " + json.dumps({
+        "rms_err": err, "max_abs_err": (card16 - cpu16).abs().max().item(),
+        "cpu_bf16_vs_f32_rms": noise, "cpu_one_ulp_floor_rms": floor, "limit_rms": limit,
+        "err_over_bf16_noise": err / noise, "card": card}))
+    if not (torch.isfinite(card16).all() and err <= limit):
+        raise AssertionError(f"card bf16 and CPU bf16 disagree: {err} > {limit}")
+
+
+def bf16_serving(card: str, model32, mel) -> int:
+    """mel_24k_base in bf16 at 1/2/4 steps: launches, times beside the
+    float32 model's, card bf16 against card float32 and against the CPU, and
+    one call's device time by family. Returns the launches over the three
+    calls."""
+    model16 = bf16_vocoder("cuda")
+    fused.launches = fused.adjoint_launches = 0
+    outs = {}
+    for n in (1, 2, 4):
+        before = fused.launches
+        outs[n] = model16.infer(mel, n_timesteps=n)
+        torch.cuda.synchronize()
+        if outs[n].shape != (16, 24064) or not torch.isfinite(outs[n]).all():
+            raise AssertionError(f"bf16 {n}-step output {tuple(outs[n].shape)} not finite (16, 24064)")
+        if fused.launches - before != 3 * n:
+            raise AssertionError(f"bf16 {n}-step call launched the kernel {fused.launches - before} "
+                                 f"times, expected {3 * n}")
+    launches = fused.launches
+    if fused.adjoint_launches:
+        raise AssertionError(f"bf16 serving launched the adjoint {fused.adjoint_launches} times")
+    print(f"bf16 serving: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
+    for n in (1, 2, 4):
+        with torch.inference_mode():
+            ref = model32.infer(mel, n_timesteps=n)
+        print(f"bf16 vs f32 on the card, {n} step(s): " + json.dumps({
+            "rms": rms(outs[n], ref), "max_abs": (outs[n] - ref).abs().max().item(),
+            "f32_rms_level": ref.double().pow(2).mean().sqrt().item()}))
+
+    audio_s = 16 * 24064 / 24000
+    median16 = {}
+    for n in (1, 2, 4):
+        row = {"config": "mel_24k_base", "n_timesteps": n, "batch": 16, "mel_frames": 94,
+               "audio_s": audio_s, "card": card}
+        for name, m in (("f32", model32), ("bf16", model16), ("f32_again", model32),
+                        ("bf16_again", model16)):
+            ms = time_calls(lambda: m.infer(mel, n_timesteps=n))
+            med = statistics.median(ms)
+            row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
+                         "x_real_time_median": audio_s / med * 1e3,
+                         "x_real_time_min": audio_s / max(ms) * 1e3,
+                         "x_real_time_max": audio_s / min(ms) * 1e3}
+        median16[n] = statistics.median([row["bf16"]["ms_median"], row["bf16_again"]["ms_median"]])
+        print("bf16 serving timing " + json.dumps(row))
+    bf16_card_vs_cpu(card)
+    gemms = profile_one_call(card, model16, mel, median16[1], "bf16")
+    # only the STFT's DFT matmuls (two per branch) may stay float32
+    if gemms.get("bf16", {}).get("ops", 0) == 0 or gemms.get("fp32", {}).get("ops", 0) > 6:
+        raise AssertionError(f"a bf16 call's GEMMs are not bf16 but the STFT's: {gemms}")
+    return launches
+
+
+def card_vs_cpu_44k(card: str) -> int:
+    """mel_44k_128band_512x_base, float32, 1 step at batch 2, card against
+    CPU with the same weights and x0; returns the card run's launches."""
+    gpu = get_model("mel_44k_128band_512x_base", device="cuda", seed=0).module
+    cpu = get_model("mel_44k_128band_512x_base", device="cpu", seed=0).module
+    rng = np.random.RandomState(4)
+    cond = torch.from_numpy(rng.randn(2, 128, 87).astype(np.float32))
+    x0 = torch.from_numpy((0.1 * rng.randn(2, 87 * 512)).astype(np.float32))
+    with torch.inference_mode():
+        fused.launches = 0
+        a = gpu.infer_from_noise(x0.cuda(), cond.cuda()).cpu()
+        launches = fused.launches
+        b = cpu.infer_from_noise(x0, cond)
+    abs_err = (a - b).abs().max().item()
+    rel = abs_err / b.abs().max().item()
+    print(f"44.1 kHz card vs CPU 1 step, batch 2: max_abs_err={abs_err:.3e} max_rel_err={rel:.3e} "
+          f"launches {launches}")
+    if launches != 3 or not rel <= CARD_VS_CPU_TOL:
+        raise AssertionError(f"44.1 kHz: card and CPU disagree ({rel}) or {launches} launches")
+    return launches
+
+
+def bf16_trainer(card: str, root: Path) -> dict:
+    """`bin/pretrain.py --use-bf16` for 8 steps on half the corpus of phase
+    10; returns the two kernels' launches over the run."""
+    recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:128]
+    half = root / "train_half.jsonl.gz"
+    write_recording_manifest(recs, half)
+    exp = root / "exp_bf16"
+    args = pretrain.get_parser().parse_args([
+        "--model-name", "mel_24k_base", "--use-bf16", "true", "--batch-size", "16",
+        "--duration", "1.5", "--num-epochs", "1", "--num-workers", "4", "--seed", "0",
+        "--save-every-n", "1000", "--average-period", "4", "--log-interval", "4",
+        "--valid-interval", "4", "--device", "cuda", "--exp-dir", str(exp),
+        "--train-recordings", str(half),
+        "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
+    torch.cuda.reset_peak_memory_stats()
+    fused.launches = fused.adjoint_launches = 0
+    start = time.perf_counter()
+    history = pretrain.run(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    steps = len(history)
+    if steps != 8 or launches != {"forward": 3 * (8 + 2), "adjoint": 3 * 8}:
+        raise AssertionError(f"bf16 trainer ran {steps} steps with launches {launches}")
+    losses = [h["loss"] for h in history]
+    ms = [h["ms"] for h in history[2:]]
+    med = statistics.median(ms)
+    print("bf16 trainer " + json.dumps({
+        "config": "mel_24k_base", "compute_dtype": "bfloat16", "batch": 16,
+        "seconds_per_item": 1.5, "steps": steps, "loss_curve": losses,
+        "clip_scale": [h["clip_scale"] for h in history], "first_step_ms": history[0]["ms"],
+        "step_ms_median": med, "step_ms_min": min(ms), "step_ms_max": max(ms),
+        "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall_s,
+        "launches": launches, "card": card}))
+    if not all(math.isfinite(x) for x in losses) or not statistics.median(losses[-3:]) < losses[0]:
+        raise AssertionError(f"the bf16 training loss is not finite or does not fall: {losses}")
+    profile_train_step(card, med, "bfloat16")
+    return launches
+
+
+def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
+    """bin/infer over a manifest of corpus files with the windowed average
+    of phase 10's epochs, and bin/infer_dir on a directory of them, whole and
+    in 50-frame chunks; returns each run's launches."""
+    recs = read_recording_manifest(root / "valid" / "recordings.jsonl.gz")[:6]
+    cli = root / "cli"
+    (cli / "wavs").mkdir(parents=True, exist_ok=True)
+    write_recording_manifest(recs, cli / "recordings.jsonl.gz")
+    launches = {}
+    fused.launches = 0
+    written = infer.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "1",
+                          "--recordings", str(cli / "recordings.jsonl.gz"),
+                          "--root-path", str(root / "valid"), "--output-dir", str(cli / "infer"),
+                          "--batch-size", "4", "--num-workers", "2", "--device", "cuda"])
+    launches["infer"] = fused.launches
+    for rec, path in zip(recs, written):
+        out, sr = read_wav(path)
+        if sr != 24000 or out.shape != (1, rec.num_samples) or not np.isfinite(out).all():
+            raise AssertionError(f"bin/infer wrote {path} at {sr} Hz, shape {out.shape}")
+    if len(written) != len(recs) or launches["infer"] != 3 * 2:  # 6 files in batches of 4
+        raise AssertionError(f"bin/infer wrote {len(written)} files with {launches['infer']} launches")
+    for rec in recs[:4]:
+        shutil.copy(rec.path, cli / "wavs")
+    runs = {}
+    for name, extra in (("infer_dir", []), ("infer_dir_chunked", ["--chunk-size", "50"])):
+        fused.launches = 0
+        runs[name] = infer_dir.main(["--checkpoint", str(averaged), "--input-dir", str(cli / "wavs"),
+                                     "--output-dir", str(cli / name), "--device", "cuda", *extra])
+        launches[name] = fused.launches
+    frames = 48000 // 256 + 1  # 2 s files
+    chunks = -(-frames // 50)
+    if launches["infer_dir"] != 3 * 4 or launches["infer_dir_chunked"] != 3 * 4 * chunks:
+        raise AssertionError(f"bin/infer_dir launches {launches}")
+    diffs = []
+    for whole, chunked in zip(runs["infer_dir"], runs["infer_dir_chunked"]):
+        a, b = read_wav(whole)[0], read_wav(chunked)[0]
+        if a.shape != b.shape or a.shape != (1, frames * 256) or not (
+                np.isfinite(a).all() and np.isfinite(b).all()):
+            raise AssertionError(f"bin/infer_dir wrote {a.shape} and {b.shape}")
+        diffs.append({"file": whole.name, "max_abs": float(np.abs(a - b).max()),
+                      "rms": float(np.sqrt(np.mean((a - b) ** 2))),
+                      "whole_rms": float(np.sqrt(np.mean(a ** 2)))})
+    if not (native_audio.available() and native_audio.reads > 0):
+        raise AssertionError("the native WAV reader is not in use")
+    print("CLIs " + json.dumps({"infer_files": len(written), "infer_dir_files": len(diffs),
+                                "launches": launches, "chunks_per_file": chunks,
+                                "chunked_vs_whole": diffs,
+                                "native_wav_reader_crops": native_audio.reads, "card": card}))
     return launches
 
 
@@ -682,17 +951,23 @@ def main() -> int:
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
     mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
-    launches, wall_ms = main_path(card, model, mel)
+    launches, wall_ms, launches44 = main_path(card, model, mel)
     card_vs_cpu()
     audio = 0.1 * torch.randn(4, 24000, generator=torch.Generator().manual_seed(3))
     wav = model.reconstruct(audio, n_timesteps=1)
     if wav.shape != (4, 24064) or not torch.isfinite(wav).all():
         raise AssertionError(f"reconstruct gave {tuple(wav.shape)}")
     print(f"reconstruct: (4, 24000) waveform -> {tuple(wav.shape)}, finite")
-    profile_one_call(card, model, mel, wall_ms)
+    profile_one_call(card, model, mel, wall_ms, "f32")
+    bf16_launches = bf16_serving(card, model, mel)
     del model
+    card44_launches = card_vs_cpu_44k(card)
     grads_card_vs_cpu(card)
-    train_launches = trainer(card, Path(__file__).resolve().parent / "build" / "smoke_train")
+    root = Path(__file__).resolve().parent / "build" / "smoke_train"
+    train_launches, exp, averaged = trainer(card, root)
+    bf16_train_launches = bf16_trainer(card, root)
+    cli_launches = clis(card, root, exp, averaged)
+    shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
     train_step = adjoint_shapes[-3:]  # the three branches of one training step
@@ -702,7 +977,12 @@ def main() -> int:
         "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:240",
         "launches": launches,
-        "launches_in_training": train_launches["forward"],
+        "launches_by_path": {
+            "serving_f32_1_2_4_steps": launches, "serving_bf16_1_2_4_steps": bf16_launches,
+            "serving_44k_1_step": launches44, "card_vs_cpu_44k_1_step": card44_launches,
+            "training_f32_32_steps": train_launches["forward"],
+            "training_bf16_8_steps": bf16_train_launches["forward"],
+            **{f"cli_{k}": v for k, v in cli_launches.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),
         "ms": sum(s["ms"] for s in step),
@@ -721,6 +1001,8 @@ def main() -> int:
         "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:222",
         "launches": train_launches["adjoint"],
+        "launches_by_path": {"training_f32_32_steps": train_launches["adjoint"],
+                             "training_bf16_8_steps": bf16_train_launches["adjoint"]},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes),
         "ms": sum(s["ms"] for s in train_step),

@@ -1,6 +1,15 @@
 """Public model API of the port: `get_model` builds a named config's
 generator and returns a `VocoderModel` that serves mel -> waveform synthesis,
-counterpart of `flow2gan_tpu/api.py`."""
+counterpart of `flow2gan_tpu/api.py`.
+
+A bfloat16 model is built as the JAX package builds one: a config with
+`compute_dtype="bfloat16"`, `build_generator`, then `VocoderModel`:
+
+    cfg = get_generator_config("mel_24k_base")
+    cfg["compute_dtype"] = "bfloat16"
+    module = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
+    model = VocoderModel(module.to("cuda"), cfg, torch.device("cuda"))
+"""
 
 from __future__ import annotations
 
@@ -10,7 +19,13 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.models import MelAudioGenerator, build_generator, get_generator_config
+from flow2gan_tpu_torch.models.config import (
+    HF_MODEL_NAMES,
+    HF_REPO,
+    generator_config_for_hf_model,
+)
 from flow2gan_tpu_torch.models.convnext import DepthwiseConv1d
 from flow2gan_tpu_torch.models.norms import BiasNorm
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
@@ -24,12 +39,16 @@ class VocoderModel:
     hop) waveforms; `mel(audio)` takes (B, L) and returns (B, n_mels,
     frames); `reconstruct(audio)` is `infer(mel(audio))`. Inputs may be numpy
     arrays or tensors; outputs are float32 tensors on the model's device.
+    `n_timesteps` is the Euler step count a call uses when it names none (a
+    released model's own, from `get_model`).
     """
 
-    def __init__(self, module: MelAudioGenerator, config: AttributeDict, device: torch.device):
+    def __init__(self, module: MelAudioGenerator, config: AttributeDict, device: torch.device,
+                 n_timesteps: int = 1):
         self.module = module.eval()
         self.config = config
         self.device = device
+        self.n_timesteps = n_timesteps
         self.mel_fn = LogMelSpectrogram(
             sampling_rate=config.sampling_rate,
             n_fft=config.mel_n_fft,
@@ -45,14 +64,14 @@ class VocoderModel:
         return self.mel_fn(self._tensor(audio))
 
     @torch.inference_mode()
-    def infer(self, cond, n_timesteps: int = 1, clamp_pred: bool = True,
+    def infer(self, cond, n_timesteps: Optional[int] = None, clamp_pred: bool = True,
               seed: int = 0) -> torch.Tensor:
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return self.module.infer(
-            self._tensor(cond), n_timesteps=n_timesteps, clamp_pred=clamp_pred, generator=gen
-        )
+        n = n_timesteps if n_timesteps is not None else self.n_timesteps
+        return self.module.infer(self._tensor(cond), n_timesteps=n, clamp_pred=clamp_pred,
+                                 generator=gen)
 
-    def reconstruct(self, audio, n_timesteps: int = 1) -> torch.Tensor:
+    def reconstruct(self, audio, n_timesteps: Optional[int] = None) -> torch.Tensor:
         return self.infer(self.mel(audio), n_timesteps=n_timesteps)
 
 
@@ -72,36 +91,46 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def get_model(
-    model_name: str = "mel_24k_base",
+    model_name: Optional[str] = None,
     checkpoint: Optional[Union[str, Path]] = None,
     device: Optional[Union[str, torch.device]] = None,
     seed: int = 0,
     hf_model_name: Optional[str] = None,
 ) -> VocoderModel:
-    """Build a vocoder from a named config.
+    """Build a vocoder from a named config (default mel_24k_base).
 
     With `checkpoint=None` the weights are a random init drawn from `seed`;
-    otherwise `checkpoint` is a `.pt` file holding the port's own
-    `state_dict`. `device` defaults to "cuda", and there is no fallback: with
-    no card this raises unless the caller passes `device="cpu"`. On the card
-    it turns TF32 off for the process (`utils.disable_tf32`), so every
-    inference call runs in IEEE float32.
+    otherwise `checkpoint` is a `.pt` file: the port's own `state_dict`, a
+    trainer checkpoint, or a checkpoint in the reference's naming (a released
+    model), told apart by their names (`compat.from_reference`).
+    `hf_model_name` names a released model: it picks the config and the
+    n_timesteps the model was tuned for, and needs the file itself as
+    `checkpoint`, since the port downloads nothing. `device` defaults to
+    "cuda", and there is no fallback: with no card this raises unless the
+    caller passes `device="cpu"`. On the card it turns TF32 off for the
+    process (`utils.disable_tf32`), so every inference call runs in IEEE
+    float32.
     """
+    n_timesteps = 1
     if hf_model_name is not None:
-        raise NotImplementedError(
-            f"cannot fetch {hf_model_name!r}: the port downloads nothing and does "
-            "not read reference-named checkpoints yet; pass checkpoint=<port .pt>"
-        )
+        if hf_model_name not in HF_MODEL_NAMES:
+            raise ValueError(f"Unknown released model {hf_model_name!r}; available: "
+                             f"{sorted(HF_MODEL_NAMES)}")
+        if checkpoint is None:
+            raise FileNotFoundError(
+                f"{hf_model_name!r} needs its checkpoint: the port downloads nothing, so fetch "
+                f"{hf_model_name}.pt from {HF_REPO} and pass checkpoint=<its path>")
+        n_timesteps = HF_MODEL_NAMES[hf_model_name]
+        model_name = model_name or generator_config_for_hf_model(hf_model_name)
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     if device.type == "cuda":
         disable_tf32()
-    cfg = get_generator_config(model_name)
+    cfg = get_generator_config(model_name or "mel_24k_base")
     module = build_generator(cfg)
     if checkpoint is None:
         init_weights(module, torch.Generator().manual_seed(seed))
     else:
-        state = torch.load(Path(checkpoint), map_location="cpu", weights_only=True)
-        module.load_state_dict(state, strict=True)
-    return VocoderModel(module.to(device), cfg, device)
+        load_weights(module, checkpoint)
+    return VocoderModel(module.to(device), cfg, device, n_timesteps)

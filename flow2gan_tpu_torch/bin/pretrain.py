@@ -4,7 +4,9 @@
 The counterpart of `flow2gan_tpu/bin/pretrain.py`, with its flag names and
 defaults for what is ported, and `--device` (default cuda; the tests pass
 cpu). Each step runs the fused iSTFT kernel forward and its adjoint kernel
-backward on every branch. Checkpoints: epoch-0.pt (the initial model), then
+backward on every branch. `--use-bf16 true` runs the ConvNeXt stacks in
+bfloat16 (`compute_dtype`); parameters, the iSTFT and the loss stay float32.
+Checkpoints: epoch-0.pt (the initial model), then
 epoch-N.pt at the end of each epoch and checkpoint-<batch>.pt every
 --save-every-n batches (the last --keep-last-k kept), each with the float64
 running average that `bin/save_averaged_model.py` averages over.
@@ -49,7 +51,6 @@ _LATER = (
     ("save_infer_steps", "2,4,8", "slice 8, observability (TensorBoard sample dumps)"),
     ("print_diagnostics", False, "slice 8, observability"),
     ("inf_check", False, "slice 8, observability"),
-    ("use_bf16", False, "slice 2, bf16 compute"),
     ("tensorboard", False, "slice 8, observability"),
     ("profile_dir", None, "slice 8, observability"),
     ("freeze_modules", None, "slice 5, the trainers' shared options"),
@@ -95,7 +96,8 @@ def get_parser():
     parser.add_argument("--average-period", type=int, default=200)
     parser.add_argument("--log-interval", type=int, default=50)
     parser.add_argument("--valid-interval", type=int, default=2000)
-    parser.add_argument("--use-bf16", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--use-bf16", type=str2bool, default=False,
+                        help="bf16 activations in the model compute path")
     parser.add_argument("--tensorboard", type=str2bool, default=False, help="not ported yet")
     parser.add_argument("--profile-dir", type=str, default=None, help="not ported yet")
     parser.add_argument("--freeze-modules", type=str, default=None, help="not ported yet")
@@ -145,6 +147,8 @@ def run(args) -> List[dict]:
     np.random.seed(args.seed)
 
     cfg = get_generator_config(args.model_name)
+    if args.use_bf16:
+        cfg["compute_dtype"] = "bfloat16"
     model = init_weights(build_generator(cfg), torch.Generator().manual_seed(args.seed)).to(device)
     mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
                                hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)

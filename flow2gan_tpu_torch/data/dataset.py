@@ -1,19 +1,21 @@
-"""Host-side data pipeline: recording manifests -> fixed-shape numpy batches.
-The port's own copy of `flow2gan_tpu/data/dataset.py`, as far as the
-trainer uses it, on the pure-Python read path (the whole WAV is read, then
-cropped):
+"""Host-side data pipeline: recording manifests -> numpy batches. The port's
+own copy of `flow2gan_tpu/data/dataset.py`:
 
-- lhotse-style `recordings.jsonl[.gz]` manifests;
-- `duration`-second crops: at random offsets in training, retried up to
+- lhotse-style `recordings.jsonl[.gz]` manifests, or a directory scan
+  (`scan_dir_to_recordings`);
+- `duration`-second crops, read by the native reader (`native_audio`, only
+  the crop is decoded; the whole file is read in Python where the library is
+  unavailable): at random offsets in training, retried up to
   `max_load_times` while the crop's RMS is below 0.005 (silence), from the
-  start in eval; mono mixdown, a random -1..-6 dB peak normalisation (-3 dB
-  in eval), polyphase resampling;
-- batches of the crop length; silent items are dropped and the batch
+  start in eval; or whole files with `duration=None` (the inference CLIs);
+- mono mixdown, with `apply_effects` a random -1..-6 dB peak normalisation
+  (-3 dB in eval), polyphase resampling; names relative to `root_path`;
+- batches of the crop length, or for whole files of the longest item
+  rounded up to `_bucket_length`; silent items are dropped and the batch
   refilled by repeating the others;
 - a thread-pool loader, deterministic per (seed, epoch).
 
-Whole-file loading (the inference CLIs) and per-process sharding wait for
-their slices (ROADMAP.md, slices 4 and 6).
+Per-process sharding waits for its slice (ROADMAP.md, slice 6, DDP).
 """
 
 from __future__ import annotations
@@ -22,15 +24,19 @@ import dataclasses
 import gzip
 import json
 import logging
+import os
 import queue
+import struct
+import wave
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Iterator, List, Sequence, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from flow2gan_tpu_torch.data import native_audio
 from flow2gan_tpu_torch.data.audio_io import peak_normalize_db, read_wav, resample
 
 Pathlike = Union[str, Path]
@@ -79,20 +85,39 @@ def write_recording_manifest(recs: Sequence[Recording], path: Pathlike) -> None:
             }) + "\n")
 
 
+def scan_dir_to_recordings(root: Pathlike, pattern: str = "**/*.wav") -> List[Recording]:
+    """Recordings of the files under `root` that match `pattern`, from their
+    WAV headers (a float WAV, which `wave` cannot parse, is read whole)."""
+    recs = []
+    for p in sorted(Path(root).glob(pattern)):
+        try:
+            with wave.open(str(p), "rb") as w:
+                sr, n = w.getframerate(), w.getnframes()
+        except (wave.Error, EOFError, struct.error):
+            audio, sr = read_wav(p)
+            n = audio.shape[-1]
+        recs.append(Recording(id=p.stem, path=str(p), sampling_rate=sr, num_samples=n))
+    return recs
+
+
 class RecordingDataset:
-    """Map-style dataset of `duration`-second crops. Item i of epoch e ->
-    (audio float32 (T,), silence, path), with its randomness from (seed, e,
-    i)."""
+    """Map-style dataset of `duration`-second crops, or of whole files when
+    `duration` is None. Item i of epoch e -> (audio float32 (T,), silence,
+    name), with its randomness from (seed, e, i); the name is the path,
+    relative to `root_path` when one is given."""
 
     min_rms = 0.005
 
-    def __init__(self, recordings: Sequence[Recording], duration: float,
-                 sampling_rate: int = 24000, train: bool = False, max_load_times: int = 1,
-                 seed: int = 0):
+    def __init__(self, recordings: Sequence[Recording], sampling_rate: int = 24000,
+                 root_path: Optional[str] = None, train: bool = False,
+                 duration: Optional[float] = None, apply_effects: bool = True,
+                 max_load_times: int = 1, seed: int = 0):
         self.recordings = list(recordings)
-        self.duration = duration
         self.sampling_rate = sampling_rate
+        self.root_path = root_path
         self.train = train
+        self.duration = duration
+        self.apply_effects = apply_effects
         self.max_load_times = max_load_times
         self.seed = seed
 
@@ -102,21 +127,29 @@ class RecordingDataset:
     @staticmethod
     def _load_slice(rec: Recording, offset_sec: float, dur_sec: float):
         start = int(offset_sec * rec.sampling_rate)
+        n = int(dur_sec * rec.sampling_rate)
+        crop = native_audio.read_crop_mono(rec.path, start, n)  # decodes only the crop
+        if crop is not None:
+            return crop[None, :], rec.sampling_rate
         audio, sr = read_wav(rec.path)
-        return audio[:, start : start + int(dur_sec * rec.sampling_rate)], sr
+        return audio[:, start : start + n], sr
 
     def __getitem__(self, index: int, epoch: int = 0):
         rec = self.recordings[index]
         rng = np.random.RandomState(((self.seed + 31 * epoch) * 1_000_003 + index) % (2**32))
+        name = rec.path if self.root_path is None else os.path.relpath(rec.path, self.root_path)
 
         def is_silence(x):
             return float(np.sqrt(np.mean(x**2))) < self.min_rms
 
-        duration = min(self.duration, rec.duration)
-        if not self.train:
-            y, sr = self._load_slice(rec, 0.0, duration)
+        if self.duration is None:
+            y, sr = read_wav(rec.path)
+            silence = is_silence(y)
+        elif not self.train:
+            y, sr = self._load_slice(rec, 0.0, min(self.duration, rec.duration))
             silence = is_silence(y)
         else:
+            duration = min(self.duration, rec.duration)
             for _ in range(max(1, self.max_load_times)):
                 offset = rng.uniform(0, rec.duration - duration)
                 y, sr = self._load_slice(rec, offset, duration)
@@ -126,16 +159,24 @@ class RecordingDataset:
 
         if y.shape[0] > 1:
             y = y.mean(axis=0, keepdims=True)
-        y = peak_normalize_db(y, rng.uniform(-1, -6) if self.train else -3.0)
+        if self.apply_effects:
+            y = peak_normalize_db(y, rng.uniform(-1, -6) if self.train else -3.0)
         if sr != self.sampling_rate:
             y = resample(y, sr, self.sampling_rate)
-        return y[0].astype(np.float32), silence, rec.path
+        return y[0].astype(np.float32), silence, name
 
 
-def pad_collate(items, length: int) -> Dict[str, np.ndarray]:
+def _bucket_length(n: int, quantum: int = 4096) -> int:
+    """`n` rounded up to a multiple of `quantum`, so that whole-file batches
+    come in few shapes."""
+    return -(-n // quantum) * quantum
+
+
+def pad_collate(items, length: Optional[int]) -> Dict[str, np.ndarray]:
     """Collate (audio, silence, name) items into a batch zero-padded to
-    `length`. Silent items are dropped and the others repeated to refill the
-    batch, so the step sees one batch shape."""
+    `length`, or with `length=None` to the longest item's `_bucket_length`.
+    Silent items are dropped and the others repeated to refill the batch, so
+    the step sees one batch shape."""
     orig_n = len(items)
     kept = [x for x in items if not x[1]]
     if not kept:
@@ -144,6 +185,8 @@ def pad_collate(items, length: int) -> Dict[str, np.ndarray]:
     kept = kept + [kept[i % len(kept)] for i in range(orig_n - len(kept))]
 
     lens = np.asarray([len(x[0]) for x in kept], np.int32)
+    if length is None:
+        length = _bucket_length(int(lens.max()))
     audios = np.zeros((len(kept), length), np.float32)
     for i, (a, _, _) in enumerate(kept):
         audios[i, : min(len(a), length)] = a[:length]
@@ -153,8 +196,8 @@ def pad_collate(items, length: int) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     """Thread-pool prefetching loader over a `RecordingDataset`, its batches
-    padded to the crop length. Deterministic per (seed, epoch): call
-    `set_epoch` each epoch."""
+    padded to the crop length (whole files: see `pad_collate`).
+    Deterministic per (seed, epoch): call `set_epoch` each epoch."""
 
     prefetch = 4  # batches waiting beyond the workers' own
 
@@ -165,7 +208,8 @@ class DataLoader:
         self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
-        self.length = int(dataset.duration * dataset.sampling_rate)
+        self.length = (None if dataset.duration is None
+                       else int(dataset.duration * dataset.sampling_rate))
         self.seed = seed
         self.epoch = 0
 
@@ -242,18 +286,22 @@ class DataLoader:
 
 def build_data_loader(
     recordings: Sequence[Recording],
-    duration: float,
+    root_path: Optional[str] = None,
     sampling_rate: int = 24000,
     batch_size: int = 256,
     num_workers: int = 8,
     train: bool = False,
+    duration: Optional[float] = None,
+    apply_effects: bool = True,
     max_load_times: int = 1,
     seed: int = 0,
     drop_last: bool = False,
 ) -> DataLoader:
     """A loader of `duration`-second crops, shuffled and at random offsets
-    for training, padded to the crop length."""
-    dataset = RecordingDataset(recordings, duration, sampling_rate=sampling_rate, train=train,
+    for training, padded to the crop length; or of whole files
+    (`duration=None`) in manifest order."""
+    dataset = RecordingDataset(recordings, sampling_rate=sampling_rate, root_path=root_path,
+                               train=train, duration=duration, apply_effects=apply_effects,
                                max_load_times=max_load_times, seed=seed)
     return DataLoader(dataset, batch_size=batch_size, shuffle=train, num_workers=num_workers,
                       drop_last=drop_last, seed=seed)

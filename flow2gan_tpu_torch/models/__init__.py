@@ -19,7 +19,7 @@ _MODEL_KEYS = (
     "init_noise_scale", "pred_x1", "branch_reduction", "sampling_rate",
     "spec_scaling_loss", "loss_n_filters", "loss_n_fft", "loss_hop_length",
     "loss_power", "loss_eps", "loss_scale_min", "loss_scale_max",
-    "branch_dropout", "max_add_noise_scale",
+    "branch_dropout", "max_add_noise_scale", "compute_dtype",
 )
 
 

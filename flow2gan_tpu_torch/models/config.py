@@ -37,6 +37,9 @@ mel_24k_base = {
     "loss_scale_max": 1e2,
     "branch_dropout": 0.05,
     "max_add_noise_scale": 0.0,
+    # the ConvNeXt stacks' compute dtype: None (float32) or "bfloat16"; the
+    # parameters stay float32 (the JAX package's `compute_dtype` field)
+    "compute_dtype": None,
 }
 
 mel_44k_128band_512x_base = {
@@ -92,6 +95,28 @@ _GENERATOR_CONFIGS = {
     "token_24k_base": token_24k_base,
     "token_24k_tiny": token_24k_tiny,
 }
+
+
+# The released checkpoints: model name -> the n_timesteps its GAN stage was
+# tuned for. They live in HF_REPO as <name>.pt; the port downloads nothing.
+HF_REPO = "k2-fsa/Flow2GAN"
+HF_MODEL_NAMES = {
+    "libritts-mel-1-step": 1,
+    "libritts-mel-2-step": 2,
+    "libritts-mel-4-step": 4,
+    "universal-24k-mel-1-step": 1,
+    "universal-24k-mel-2-step": 2,
+    "universal-24k-mel-4-step": 4,
+    "universal-44k-mel-128band-512x-1-step": 1,
+    "universal-44k-mel-128band-512x-2-step": 2,
+    "universal-44k-mel-128band-512x-4-step": 4,
+}
+
+
+def generator_config_for_hf_model(hf_model_name: str) -> str:
+    if "44k" in hf_model_name:
+        return "mel_44k_128band_512x_base"
+    return "mel_24k_base"
 
 
 def get_generator_config(model_name: str = "mel_24k_base") -> AttributeDict:

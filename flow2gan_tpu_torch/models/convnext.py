@@ -6,6 +6,15 @@ convs are `nn.Linear`s; the depthwise and input convs transpose to
 PyTorch's (B, C, T) around `F.conv1d`. Attribute names follow the JAX
 parameter tree (`blocks_3` becomes `blocks.3`), which keeps
 `compat/from_jax.py` a renaming of leaves.
+
+`dtype` is the compute dtype (None: float32), with the semantics of flax's
+`Dense(dtype=...)` and `Conv(dtype=...)`: every linear and conv casts its
+input, weight and bias to it, while the parameters stay float32. No
+`torch.autocast`: the casts are where the JAX package makes them, and every
+mask or float32 parameter that meets an activation is cast to the
+activation's dtype first, since torch would otherwise promote the product,
+and all that follows, back to float32. The decoder returns float32, so the
+iSTFT, the Euler update and the loss stay float32.
 """
 
 from __future__ import annotations
@@ -41,21 +50,45 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torc
     return torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1)
 
 
-def _conv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int = 1):
-    """SAME-padded stride-1 conv of channels-last (B, T, C_in) -> (B, T, C_out)."""
-    return F.conv1d(x.transpose(1, 2), weight, bias, padding="same", groups=groups).transpose(1, 2)
+def _cast(dtype: Optional[torch.dtype], *tensors: torch.Tensor):
+    return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
+
+
+def _conv_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int = 1,
+               dtype: Optional[torch.dtype] = None):
+    """SAME-padded stride-1 conv of channels-last (B, T, C_in) -> (B, T, C_out)
+    in the compute dtype (see `_dense` for where the bias goes)."""
+    def conv(x, weight, bias=None):
+        return F.conv1d(x.transpose(1, 2), weight, bias, padding="same",
+                        groups=groups).transpose(1, 2)
+
+    if dtype is None:
+        return conv(x, weight, bias)
+    x, weight, bias = _cast(dtype, x, weight, bias)
+    return conv(x, weight) + bias
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """`layer(x)` in the compute dtype. In a low-precision dtype the product
+    is rounded before the bias is added, as flax does (a bias fused into the
+    GEMM would round once, and move every output by up to one ulp)."""
+    if dtype is None:
+        return layer(x)
+    x, weight, bias = _cast(dtype, x, layer.weight, layer.bias)
+    return F.linear(x, weight) + bias
 
 
 class DepthwiseConv1d(nn.Module):
     """Depthwise k-tap conv with SAME zero padding on (B, T, C)."""
 
-    def __init__(self, channels: int, kernel_size: int = 7):
+    def __init__(self, channels: int, kernel_size: int = 7, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.zeros(channels, 1, kernel_size))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _conv_same(x, self.weight, self.bias, groups=self.weight.shape[0])
+        return _conv_same(x, self.weight, self.bias, groups=self.weight.shape[0], dtype=self.dtype)
 
 
 class ConvNeXtBlock(nn.Module):
@@ -78,10 +111,12 @@ class ConvNeXtBlock(nn.Module):
         time_embed_channels: int = 0,
         use_residual_scale: bool = True,
         cond_upsample_factor: int = 1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.cond_upsample_factor = cond_upsample_factor
-        self.dwconv = DepthwiseConv1d(channels, kernel_size)
+        self.dwconv = DepthwiseConv1d(channels, kernel_size, dtype)
         self.norm = BiasNorm(channels)
         self.cond_proj = nn.Linear(cond_channels, channels) if conditioned else None
         self.time_embed_proj = (
@@ -102,15 +137,15 @@ class ConvNeXtBlock(nn.Module):
     ) -> torch.Tensor:
         residual = x
         if mask is not None:
-            x = x * mask
+            x = x * mask.to(x.dtype)
         x = self.norm(self.dwconv(x), gates)
         if self.cond_proj is not None:
-            c = self.cond_proj(cond)
+            c = _dense(self.cond_proj, cond, self.dtype)
             if self.cond_upsample_factor != 1:
                 c = c.repeat_interleave(self.cond_upsample_factor, dim=1)
             x = x + c[:, : x.shape[1]]
-            x = x * (1.0 + self.time_embed_proj(time_embed))[:, None, :]
-        x = self.pwconv2(self.act(self.pwconv1(x)))
+            x = x * (1.0 + _dense(self.time_embed_proj, time_embed, self.dtype))[:, None, :]
+        x = _dense(self.pwconv2, self.act(_dense(self.pwconv1, x, self.dtype)), self.dtype)
         if self.residual_scale is not None:
             residual = self.residual_scale(residual, gates)
         return x + residual
@@ -128,8 +163,10 @@ class CondEncoder(nn.Module):
         conv_kernel_size: int = 7,
         num_layers: int = 4,
         use_residual_scale: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.in_proj = nn.Conv1d(cond_dim, channels, 3)
         self.in_norm = BiasNorm(channels)
         self.blocks = nn.ModuleList(
@@ -138,13 +175,15 @@ class CondEncoder(nn.Module):
                 channels * hidden_factor,
                 conv_kernel_size,
                 use_residual_scale=use_residual_scale,
+                dtype=dtype,
             )
             for _ in range(num_layers)
         )
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.in_norm(_conv_same(x, self.in_proj.weight, self.in_proj.bias), gates)
+        x = _conv_same(x, self.in_proj.weight, self.in_proj.bias, dtype=self.dtype)
+        x = self.in_norm(x, gates)
         for block in self.blocks:
             x = block(x, mask=mask, gates=gates)
         return x
@@ -165,8 +204,10 @@ class ConvNeXtDecoder(nn.Module):
         num_layers: int = 8,
         use_residual_scale: bool = True,
         cond_upsample_factor: int = 1,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.dtype = dtype
         self.time_embed_channels = time_embed_channels
         self.cond_upsample_factor = cond_upsample_factor
         self.in_proj = nn.Linear(in_channels, channels)
@@ -188,6 +229,7 @@ class ConvNeXtDecoder(nn.Module):
                 time_embed_channels=time_embed_channels,
                 use_residual_scale=use_residual_scale,
                 cond_upsample_factor=cond_upsample_factor,
+                dtype=dtype,
             )
             for _ in range(num_layers)
         )
@@ -209,13 +251,14 @@ class ConvNeXtDecoder(nn.Module):
             cond = cond[:, :need] if need <= cond.shape[1] else F.pad(
                 cond, (0, 0, 0, need - cond.shape[1])
             )
-        x = self.in_norm(self.in_proj(x), gates)
+        dtype = self.dtype
+        x = self.in_norm(_dense(self.in_proj, x, dtype), gates)
         emb = sinusoidal_pos_emb(t, self.time_embed_channels)
-        time_embed = self.time_mlp_2(F.silu(self.time_mlp_0(emb)))
-        cond = self.cond_mlp_2(self.cond_mlp_1(self.cond_mlp_0(cond)))
+        time_embed = _dense(self.time_mlp_2, F.silu(_dense(self.time_mlp_0, emb, dtype)), dtype)
+        cond = _dense(self.cond_mlp_2, self.cond_mlp_1(_dense(self.cond_mlp_0, cond, dtype)), dtype)
         for block in self.blocks:
             x = block(x, cond=cond, time_embed=time_embed, mask=mask, gates=gates)
-        return self.out_proj(x)
+        return _dense(self.out_proj, x, dtype).float()
 
 
 class AudioConvNeXt(nn.Module):
@@ -226,7 +269,8 @@ class AudioConvNeXt(nn.Module):
     tensors and the plain versions for CPU ones, "kernel" the kernels only (a
     CPU tensor raises). No value sends a CUDA tensor through the plain
     version. `gates` (the limiters' training gates, `models/norms.py`) is
-    None in the eval form.
+    None in the eval form. `dtype` is the decoder's compute dtype; the STFT
+    and the iSTFT stay float32.
     """
 
     def __init__(
@@ -242,6 +286,7 @@ class AudioConvNeXt(nn.Module):
         num_layers: int = 8,
         use_residual_scale: bool = True,
         istft_impl: str = "auto",
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if cond_hop_length % hop_length:
@@ -263,6 +308,7 @@ class AudioConvNeXt(nn.Module):
             num_layers=num_layers,
             use_residual_scale=use_residual_scale,
             cond_upsample_factor=self.cond_upsample_factor,
+            dtype=dtype,
         )
 
     @staticmethod

@@ -93,9 +93,13 @@ class MelAudioGenerator(nn.Module):
         loss_scale_max: float = 1e2,
         branch_dropout: float = 0.05,
         max_add_noise_scale: float = 0.0,
+        compute_dtype: Optional[str] = None,
         istft_impl: str = "auto",
     ):
         super().__init__()
+        # the ConvNeXt stacks' compute dtype ("bfloat16"; None is float32);
+        # the parameters, the STFTs, the Euler state and the loss stay float32
+        dtype = getattr(torch, compute_dtype) if compute_dtype else None
         n = len(n_ffts)
         if not (len(hop_lengths) == len(channels) == len(conv_kernel_sizes) == len(num_layers) == n):
             raise ValueError("per-branch config tuples must all have one entry per branch")
@@ -123,6 +127,7 @@ class MelAudioGenerator(nn.Module):
                 conv_kernel_size=cond_enc_conv_kernel_size,
                 num_layers=cond_enc_num_layers,
                 use_residual_scale=use_residual_scale,
+                dtype=dtype,
             )
             if use_cond_encoder
             else None
@@ -140,6 +145,7 @@ class MelAudioGenerator(nn.Module):
                 num_layers=num_layers[i],
                 use_residual_scale=use_residual_scale,
                 istft_impl=istft_impl,
+                dtype=dtype,
             )
             for i in range(n)
         )

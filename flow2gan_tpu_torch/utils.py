@@ -29,16 +29,20 @@ def safe_log(x: torch.Tensor, clip_val: float = 1e-7) -> torch.Tensor:
 
 
 def disable_tf32() -> None:
-    """Run float32 matmuls and cuDNN convolutions in full IEEE float32.
+    """Run float32 matmuls and cuDNN convolutions in full IEEE float32, and
+    accumulate bfloat16 matmuls in float32 throughout.
 
     The JAX package computes its DFTs at `Precision.HIGHEST`; on the card
     cuDNN convolutions default to TF32 (about three decimal digits), which
-    would put the port 1e-3 away from it. Both flags are process-wide and are
-    not restored: `api.get_model` calls this once when it builds a model on
-    the card, so concurrent calls never see the flags change under them.
+    would put the port 1e-3 away from it. XLA accumulates bfloat16 dots in
+    float32, while cuBLAS may round the partial sums of a split-K bfloat16
+    GEMM to bfloat16 unless told not to. The flags are process-wide and are
+    not restored: `api.get_model` and the trainer call this once on the
+    card, so concurrent calls never see the flags change under them.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 class AttributeDict(dict):

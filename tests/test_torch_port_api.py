@@ -41,8 +41,10 @@ def test_port_imports_no_jax():
         "flow2gan_tpu_torch.training.checkpoint", "flow2gan_tpu_torch.training.hooks",
         "flow2gan_tpu_torch.training.err", "flow2gan_tpu_torch.data.audio_io",
         "flow2gan_tpu_torch.data.dataset", "flow2gan_tpu_torch.bin.pretrain",
-        "flow2gan_tpu_torch.bin.save_averaged_model",
-    } <= set(modules) and len(modules) >= 25
+        "flow2gan_tpu_torch.bin.save_averaged_model", "flow2gan_tpu_torch.compat.from_reference",
+        "flow2gan_tpu_torch.data.native_audio", "flow2gan_tpu_torch.bin.infer",
+        "flow2gan_tpu_torch.bin.infer_dir",
+    } <= set(modules) and len(modules) >= 29
 
 
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
@@ -77,8 +79,11 @@ def test_get_model_on_the_card_turns_tf32_off(monkeypatch):
 
 
 def test_get_model_rejects_what_it_cannot_serve():
-    with pytest.raises(NotImplementedError, match="downloads nothing"):
+    with pytest.raises(FileNotFoundError,
+                       match="downloads nothing.*libritts-mel-1-step.pt from k2-fsa/Flow2GAN"):
         api.get_model(hf_model_name="libritts-mel-1-step", device="cpu")
+    with pytest.raises(ValueError, match="Unknown released model"):
+        api.get_model(hf_model_name="libritts-mel-3-step", checkpoint="x.pt", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.get_model("token_24k_tiny", device="cpu")
     with pytest.raises(ValueError, match="Unsupported model name"):

@@ -89,7 +89,6 @@ def test_pretrain_trains_tiny_on_cpu_and_its_average_serves(tmp_path):
     ("--save-infer-steps", "1", "slice 8"),
     ("--print-diagnostics", "true", "slice 8"),
     ("--inf-check", "true", "slice 8"),
-    ("--use-bf16", "true", "slice 2"),
     ("--tensorboard", "true", "slice 8"),
     ("--profile-dir", "prof", "slice 8"),
     ("--freeze-modules", "cond_encoder", "slice 5"),
