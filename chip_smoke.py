@@ -56,7 +56,27 @@ prints no result line):
    a manifest of corpus files, `bin/infer_dir` on a directory of them, whole
    and in 50-frame chunks; lengths, finiteness, chunked against whole, and
    the native WAV reader in use;
-15. the `kernels` JSON line (each kernel's launches on every path), then the
+15. the GAN stage (stage 2), all on mel_24k_base with the full
+   discriminators (periods 2-11, windows 2048/1024/512):
+   a. both kernels against their plain versions at the rollout shapes of a
+      fine-tuning batch (16 x 1.5 s: 141 mel frames, 36096 samples);
+   b. the discriminators, card against CPU (batch 2 x 1 s, same weights):
+      every score and feature map;
+   c. the D and G objectives at 1 step, card against CPU (batch 2 x 1 s,
+      same weights and draws): loss and the own side's gradients, and the
+      launches (forward, adjoint): (3, 0) for D, (3, 3) for G;
+   d. the fine-tuner: `bin/finetune.py` at 4 Euler steps, batch 16 x 1.5 s,
+      from phase 10's averaged model on its corpus, a D-only warm-up of 4
+      batches then D/G alternation, 32 batches with validation; the launches
+      of every D, G and validation step, finite losses, both sides moved;
+      D-step and G-step times, audio per second of G step, peak memory;
+   e. one D step and one G step profiled by kernel family, the
+      discriminators' own device time measured alone, and the busy share;
+   f. one 4-step G step with `--remat-rollout` and without: loss and
+      gradients, peak memory and forward launches of each;
+   g. `save_averaged_model --load-gan` on the fine-tuner's checkpoints and
+      `bin/infer --load-gan` over corpus files at 4 steps;
+16. the `kernels` JSON line (each kernel's launches on every path), then the
    card line and the result line.
 """
 
@@ -78,7 +98,8 @@ import torch
 
 from flow2gan_tpu_torch import get_model
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
-from flow2gan_tpu_torch.bin import infer, infer_dir, pretrain, save_averaged_model
+from flow2gan_tpu_torch.bin import finetune, infer, infer_dir, pretrain, save_averaged_model
+from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.data import native_audio
 from flow2gan_tpu_torch.data.audio_io import read_wav, write_wav
 from flow2gan_tpu_torch.data.dataset import (
@@ -86,13 +107,17 @@ from flow2gan_tpu_torch.data.dataset import (
     read_recording_manifest,
     write_recording_manifest,
 )
-from flow2gan_tpu_torch.models import FMDraws, build_generator, get_generator_config
+from flow2gan_tpu_torch.models import FMDraws, RolloutDraws, build_generator, get_generator_config
+from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
+from flow2gan_tpu_torch.models.gan import discriminator_loss, feature_matching_loss, generator_loss
+from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
 from flow2gan_tpu_torch.models.generator import branch_dropout_weight
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import envelope, hann_window_np
 from flow2gan_tpu_torch.training import checkpoint as ckpt
+from flow2gan_tpu_torch.training.gan_step import make_gan_loss_fns, make_gan_steps
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 from flow2gan_tpu_torch.training.train_step import fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import disable_tf32
@@ -150,6 +175,18 @@ TRAIN_SHAPES = [
     (256, 128, 16, 282, 36000),
     (128, 64, 16, 563, 36000),
 ]
+# (n_fft, hop, batch, t_f, length): the branches of one GAN rollout step at
+# batch 16 x 1.5 s: 141 mel frames, so the generator's 141 * 256 samples
+GAN_SHAPES = [
+    (512, 256, 16, 142, 36096),
+    (256, 128, 16, 283, 36096),
+    (128, 64, 16, 565, 36096),
+]
+GAN_STEPS = 4  # Euler steps of the fine-tuned model
+GAN_BATCHES = 32  # 2 epochs of phase 10's corpus at batch 16
+GAN_WARMUP = 4  # D-only batches before D/G alternation
+DISC_VS_CPU_TOL = 1e-4  # each score and feature map, relative to max|CPU|
+REMAT_TOL = 1e-6  # remat against plain: loss and whole gradient, relative
 TRAIN_STEPS = 32  # 2 epochs of a 256-recording corpus at batch 16
 TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
@@ -457,6 +494,17 @@ def _family(name: str) -> str:
     return "gemm" if _GEMM_NAMES.search(name) else "elementwise, reductions, copies"
 
 
+# cuDNN's convolution kernels (forward, data and weight gradients): the
+# discriminators' Conv2d, and the generator's k=3 input conv
+_CONV_NAMES = re.compile(r"fprop|dgrad|wgrad|convolve|conv2d|implicit", re.IGNORECASE)
+
+
+def _gan_family(name: str) -> str:
+    if "conv_depthwise" not in name and "fused_istft" not in name and _CONV_NAMES.search(name):
+        return "conv (cuDNN)"
+    return _family(name)
+
+
 def profile_one_call(card: str, model, mel, wall_ms: float, label: str) -> dict:
     """Device time of one 1-step call by kernel family, the GEMMs split by
     input dtype, and the device's busy share against the unprofiled median
@@ -567,11 +615,13 @@ def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
     return manifest
 
 
-def device_families(fn, trace: Path = None):
-    """Device ms by kernel family of what fn() runs (torch.profiler), and
-    with `trace` also the GEMMs by input dtype."""
+def device_families(fn, trace: Path = None, family=None, kernels: list = None):
+    """Device ms by kernel family (`family`, default `_family`) of what fn()
+    runs (torch.profiler), and with `trace` also the GEMMs by input dtype;
+    `kernels`, where given, receives each kernel name's launch count."""
     from torch.profiler import ProfilerActivity, profile
 
+    family = family or _family
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=trace is not None) as prof:
         fn()
@@ -579,7 +629,9 @@ def device_families(fn, trace: Path = None):
     families = {}
     for e in prof.key_averages():
         if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0:
-            families[_family(e.key)] = families.get(_family(e.key), 0.0) + _dev_us(e) / 1e3
+            families[family(e.key)] = families.get(family(e.key), 0.0) + _dev_us(e) / 1e3
+            if kernels is not None:
+                kernels.append(e.count)
     return families, (gemm_ms_by_dtype(prof, trace) if trace is not None else None)
 
 
@@ -906,6 +958,381 @@ def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
     return launches
 
 
+def disc_tensors(judgements) -> list:
+    """The scores and feature maps of (MPD, MRD) judgements, in order."""
+    out = []
+    for scores, fmaps in judgements:
+        for score, fmap in zip(scores, fmaps):
+            out += [score, *fmap]
+    return out
+
+
+def discriminators_card_vs_cpu(card: str) -> None:
+    """The full discriminators on a batch 2 x 1 s signal, card against CPU,
+    with the same weights: every score and feature map."""
+    cpu = init_discriminators(Discriminators(), torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(voiced(np.random.RandomState(31), 2, 24000))
+    with torch.no_grad():
+        a = [t.cpu() for t in disc_tensors(gpu.judge(x.cuda()))]
+        b = disc_tensors(cpu.judge(x))
+    errs = [((u - v).abs().max() / v.abs().max().clamp_min(1e-30)).item() for u, v in zip(a, b)]
+    print("discriminators card vs CPU " + json.dumps({
+        "batch": 2, "length": 24000, "tensors": len(errs), "max_rel_err": max(errs),
+        "median_rel_err": statistics.median(errs),
+        "parameters": sum(p.numel() for p in cpu.parameters()), "card": card}))
+    if len(a) != 5 * 6 + 3 * 22 or not max(errs) <= DISC_VS_CPU_TOL:
+        raise AssertionError(f"discriminators: card and CPU disagree ({max(errs)})")
+
+
+def gan_models(device: str, generator_path=None):
+    """mel_24k_base (branch dropout off; from `generator_path` or seed 0),
+    the full discriminators (seed 0), the log-mel frontend and the
+    multi-scale mel loss's frontends, on `device`."""
+    cfg = get_generator_config("mel_24k_base")
+    cfg["branch_dropout"] = 0.0
+    gen = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
+    if generator_path is not None:
+        load_weights(gen, generator_path)
+    disc = init_discriminators(Discriminators(), torch.Generator().manual_seed(0))
+    mel = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100)
+    return gen.to(device), disc.to(device), mel.to(device), make_mel_recon_fns(24000).to(device)
+
+
+def hinge_parts(disc, audio, fakes) -> list:
+    """The D objective's gradient in parts, on the CPU: its real half's
+    (mean relu(1 - D(real)) over the discriminators, weighted 1 and 0.1),
+    then its fake half's (mean relu(1 + D(fake))) for each waveform of
+    `fakes`, as lists of tensors in `disc.named_parameters()` order."""
+    params = [p for _, p in disc.named_parameters()]
+
+    def half(judgement, sign):
+        (mp, mr) = judgement
+        return (sum(torch.relu(1 + sign * x).mean() for x in mp[0])
+                + 0.1 * sum(torch.relu(1 + sign * x).mean() for x in mr[0]))
+
+    parts = [torch.autograd.grad(half(disc.judge(audio), -1), params)]
+    for fake in fakes:
+        parts.append(torch.autograd.grad(half(disc.judge(fake), 1), params))
+    return [[g.double() for g in part] for part in parts]
+
+
+def gan_grads_card_vs_cpu(card: str) -> dict:
+    """The D and G objectives of full mel_24k_base with the full
+    discriminators at 1 Euler step, batch 2 x 1 s, card against CPU with the
+    same weights and draws: the loss and every gradient of the objective's
+    own side. Returns each objective's (forward, adjoint) launches.
+
+    Each tensor's error is held to GRAD_TENSOR_TOL of its scale plus four
+    times its floor, the whole gradient's to GRAD_TOL plus twice the whole
+    floor. A floor moves one input; the card also rounds every op of the
+    forward and backward passes in its own order, which moves a tensor
+    whose gradient is a sum that nearly cancels (BiasNorm's scalar
+    log_scale) by a few times more (PERF.md §6).
+    G side: the scale is the gradient's norm, the floor how far the CPU's
+    gradient moves when x0 moves by one float32 ulp, times how much further
+    the card's rollout lies from the CPU's than the one-ulp rollout does
+    (the card rounds every op of the solve, not only x0). D side: a fresh
+    discriminator puts every score in the hinge's linear part, so the
+    gradient is the fake half's minus the real half's (`hinge_parts`), and
+    where they nearly cancel rounding shows at the halves' size: the scale
+    is the larger of the gradient's norm and the halves' together, and the
+    floor how far the CPU's gradient moves when its fake waveform is
+    replaced by the card's (the generator's own card/CPU rounding)."""
+    models = {dev: gan_models(dev) for dev in ("cpu", "cuda")}
+    rng = np.random.RandomState(33)
+    audio = voiced(rng, 2, 24000)
+    lens = np.asarray([24000, 21000])
+    x0 = (0.1 * rng.randn(2, 94 * 256)).astype(np.float32)
+    gates = (rng.rand(1, models["cpu"][0].num_limiters) < 0.6).astype(np.float32)
+    batch = {dev: {"audio": torch.from_numpy(audio).to(dev), "audio_lens": torch.from_numpy(lens).to(dev)}
+             for dev in ("cpu", "cuda")}
+    launches = {}
+
+    def run(side, dev, x0_arr):
+        gen, disc, mel, recon = models[dev]
+        fns = dict(zip("dg", make_gan_loss_fns(gen, disc, mel, recon, n_timesteps=1)))
+        own = disc if side == "d" else gen
+        draws = RolloutDraws(torch.from_numpy(x0_arr).to(dev),
+                             torch.from_numpy(gates).to(dev) if side == "g" else None)
+        fused.launches = fused.adjoint_launches = 0
+        loss, _ = fns[side](batch[dev], draws)
+        loss.backward(inputs=list(own.parameters()))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches[side] = (fused.launches, fused.adjoint_launches)
+        grads = [p.grad.double().cpu() for p in own.parameters()]
+        own.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    def fake(dev, x0_arr=x0):
+        gen, _, mel, _ = models[dev]
+        with torch.no_grad():
+            out = gen.rollout(mel(batch[dev]["audio"]), RolloutDraws(torch.from_numpy(x0_arr).to(dev)),
+                              batch[dev]["audio_lens"], 1)
+        return out[..., :24000].cpu()
+
+    def norm(tensors):
+        return math.sqrt(sum(t.norm().item() ** 2 for t in tensors))
+
+    for side in ("d", "g"):
+        (loss_gpu, g_gpu), (loss_cpu, g_cpu) = run(side, "cuda", x0), run(side, "cpu", x0)
+        names = [k for k, _ in (models["cpu"][1] if side == "d" else models["cpu"][0]).named_parameters()]
+        if side == "d":
+            g_real, g_fake, g_fake_card = hinge_parts(models["cpu"][1], batch["cpu"]["audio"],
+                                                      [fake("cpu"), fake("cuda")])
+            scale = [max(g.norm().item(), norm([a, b])) for g, a, b in zip(g_cpu, g_real, g_fake)]
+            moved = [a - b for a, b in zip(g_fake_card, g_fake)]
+        else:
+            scale = [g.norm().item() for g in g_cpu]
+            x0_ulp = np.nextafter(x0, np.float32(np.inf))
+            f_cpu = fake("cpu")
+            gain = ((fake("cuda") - f_cpu).norm() / (fake("cpu", x0_ulp) - f_cpu).norm()).item()
+            moved = [(a - b) * gain for a, b in zip(run(side, "cpu", x0_ulp)[1], g_cpu)]
+        err = [(a - b).norm().item() for a, b in zip(g_gpu, g_cpu)]
+        floor = [m.norm().item() for m in moved]
+        ratio = [e / (GRAD_TENSOR_TOL * sc + 4 * fl + 1e-300) for e, sc, fl in zip(err, scale, floor)]
+        worst = max(range(len(names)), key=lambda i: ratio[i])
+        loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+        total, total_scale, total_floor = norm([a - b for a, b in zip(g_gpu, g_cpu)]), norm(
+            [torch.tensor(sc) for sc in scale]), norm(moved)
+        print(f"GAN {side.upper()} objective card vs CPU " + json.dumps({
+            "config": "mel_24k_base", "n_timesteps": 1, "batch": 2, "length": 24000,
+            "tensors": len(names), "loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+            "grad_rel_err_all": total / total_scale, "floor_all": total_floor / total_scale,
+            "grad_rel_err_all_over_own_norm": total / norm(g_cpu),
+            "worst_tensor": names[worst], "its_rel_err": err[worst] / scale[worst],
+            "its_floor": floor[worst] / scale[worst],
+            "its_norm_over_scale": g_cpu[worst].norm().item() / scale[worst],
+            "worst_err_over_limit": ratio[worst],
+            "median_tensor_rel_err": statistics.median(e / (sc + 1e-300) for e, sc in zip(err, scale)),
+            "worst_tensor_over_own_norm": max(e / (g.norm().item() + 1e-300) for e, g in zip(err, g_cpu)),
+            "scale": "own norm" if side == "g" else "max(own norm, hinge halves' norm)",
+            "floor": (f"x0 moved one ulp, times {gain:.3g}" if side == "g"
+                      else "the card's fake through the CPU's D"),
+            "launches_forward_adjoint": launches[side], "card": card}))
+        finite = all(torch.isfinite(g).all() for g in g_gpu)
+        expected = (3, 0) if side == "d" else (3, 3)
+        if launches[side] != expected:
+            raise AssertionError(f"the {side.upper()} objective launched {launches[side]}, "
+                                 f"expected {expected}")
+        if not (finite and loss_err <= LOSS_TOL and ratio[worst] <= 1.0
+                and total <= GRAD_TOL * total_scale + 2 * total_floor):
+            raise AssertionError(f"card and CPU disagree on the {side.upper()} objective")
+    return launches
+
+
+def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
+    """`bin/finetune.py` on mel_24k_base at 4 Euler steps from the averaged FM
+    model on phase 10's corpus; checks the launches of every step and
+    returns them with the run's timings and its experiment directory."""
+    exp = root / "exp_gan"
+    args = finetune.get_parser().parse_args([
+        "--model-name", "mel_24k_base", "--n-timesteps", str(GAN_STEPS), "--batch-size", "16",
+        "--duration", "1.5", "--num-epochs", "2", "--num-workers", "4", "--seed", "0",
+        "--gen-start-batch-idx", str(GAN_WARMUP), "--save-every-n", "1000", "--keep-last-k", "1",
+        "--average-period", "4", "--log-interval", "8", "--valid-interval", "16",
+        "--device", "cuda", "--exp-dir", str(exp), "--generator-model-path", str(averaged),
+        "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
+        "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
+    calls = []  # (step kind, forward launches, adjoint launches), one per call
+    make_steps = finetune.make_gan_steps
+
+    def counted(*a, **kw):
+        def wrap(kind, step):
+            def run(*args, **kwargs):
+                f, b = fused.launches, fused.adjoint_launches
+                out = step(*args, **kwargs)
+                calls.append((kind, fused.launches - f, fused.adjoint_launches - b))
+                return out
+            return run
+        return tuple(wrap(k, s) for k, s in zip(("D", "G", "eval"), make_steps(*a, **kw)))
+
+    torch.cuda.reset_peak_memory_stats()
+    fused.launches = fused.adjoint_launches = 0
+    finetune.make_gan_steps = counted
+    start = time.perf_counter()
+    try:
+        history = finetune.run(args)
+    finally:
+        finetune.make_gan_steps = make_steps
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = 3 * GAN_STEPS
+    sides = [h["side"] for h in history]
+    expected = ["D"] * GAN_WARMUP + ["G", "D"] * ((GAN_BATCHES - GAN_WARMUP) // 2)
+    per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G", "eval")}
+    counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
+    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches,
+                "d_steps": counts["D"] * n, "g_steps_forward": counts["G"] * n,
+                "g_steps_adjoint": counts["G"] * n, "validation": counts["eval"] * n}
+    if sides != expected or counts["eval"] != 2 or per_kind != {
+            "D": [(n, 0)], "G": [(n, n)], "eval": [(n, 0)]}:
+        raise AssertionError(f"fine-tuner: sides {sides}, launches per step {per_kind}, {counts}")
+    if launches["forward"] != n * len(calls) or launches["adjoint"] != n * counts["G"]:
+        raise AssertionError(f"fine-tuner launches {launches} beside its steps' {calls}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite GAN loss: {losses}")
+    first, last = (ckpt.load_checkpoint(exp / f"epoch-{e}.pt")["model"] for e in (0, 2))
+    moved = {side: sum(not torch.equal(v, first[side][k]) for k, v in last[side].items())
+             / len(last[side]) for side in ("generator", "discriminator")}
+    if not (moved["generator"] > 0.9 and moved["discriminator"] > 0.9):
+        raise AssertionError(f"fine-tuning did not move both sides: {moved}")
+    ms = {side: [h["ms"] for h in history if h["side"] == side][2:] for side in ("D", "G")}
+    med = {side: statistics.median(v) for side, v in ms.items()}
+    print("GAN fine-tuner " + json.dumps({
+        "config": "mel_24k_base", "n_timesteps": GAN_STEPS, "batch": 16, "seconds_per_item": 1.5,
+        "batches": len(history), "sides": "".join(sides),
+        "loss_d": [h["loss"] for h in history if h["side"] == "D"],
+        "loss_g": [h["loss"] for h in history if h["side"] == "G"],
+        "clip_scale": [h["clip_scale"] for h in history],
+        "d_step_ms_median": med["D"], "d_step_ms_min": min(ms["D"]), "d_step_ms_max": max(ms["D"]),
+        "g_step_ms_median": med["G"], "g_step_ms_min": min(ms["G"]), "g_step_ms_max": max(ms["G"]),
+        "audio_s_per_g_step_s": 16 * 1.5 / med["G"] * 1e3,
+        "first_d_step_ms": history[0]["ms"], "first_g_step_ms": history[GAN_WARMUP]["ms"],
+        "peak_memory_gb": peak_gb, "run_wall_s": wall_s, "moved_share": moved,
+        "launches": launches, "card": card}))
+    return {"launches": launches, "d_ms": med["D"], "g_ms": med["G"], "exp": exp}
+
+
+def gan_step_profiles(card: str, averaged: Path, d_ms: float, g_ms: float) -> dict:
+    """One 4-step D step and one G step (batch 16 x 1.5 s) by kernel family,
+    the discriminators' own device time in each, measured alone, and the
+    busy share against the fine-tuner's median steps; then the G step with
+    and without `--remat-rollout`. Returns the (forward, adjoint) launches
+    of the plain and the remat G step."""
+    gen, disc, mel, recon = gan_models("cuda", averaged)
+    opt_g = ScaledAdam(gen.named_parameters(), clipping_scale=2.0)
+    opt_d = ScaledAdam(disc.named_parameters(), clipping_scale=2.0)
+    d_step, g_step, _ = make_gan_steps(gen, disc, mel, recon, opt_g, opt_d, lambda b: 1e-4,
+                                       lambda b: 1e-3, n_timesteps=GAN_STEPS)
+    audio = torch.from_numpy(voiced(np.random.RandomState(41), 16, 36000)).cuda()
+    batch = {"audio": audio, "audio_lens": torch.full((16,), 36000, device="cuda")}
+
+    def draws(train, i):
+        return gen.draw_rollout(16, 141, GAN_STEPS, step_generator(0, i, "cuda"), train)
+
+    for i in range(2):
+        d_step(batch, draws(False, 2 * i))
+        g_step(batch, draws(True, 2 * i + 1))
+    counts = {"D": [], "G": []}
+    fams = {"D": device_families(lambda: d_step(batch, draws(False, 10)), family=_gan_family,
+                                 kernels=counts["D"])[0],
+            "G": device_families(lambda: g_step(batch, draws(True, 11)), family=_gan_family,
+                                 kernels=counts["G"])[0]}
+    # the discriminators' part of each step, alone: D judges real and fake
+    # and backward reaches its parameters; G judges real (no graph) and fake,
+    # and backward reaches the fake waveform only
+    with torch.no_grad():
+        fake = gen.rollout(mel(audio), draws(False, 12), batch["audio_lens"], GAN_STEPS)[..., :36000]
+    params_d = list(disc.parameters())
+
+    def d_part():
+        (rmp, rmr), (fmp, fmr) = disc.judge(audio), disc.judge(fake)
+        loss = discriminator_loss(rmp[0], fmp[0]) + 0.1 * discriminator_loss(rmr[0], fmr[0])
+        loss.backward(inputs=params_d)
+
+    def g_part():
+        leaf = fake.clone().requires_grad_()
+        with torch.no_grad():
+            real = disc.judge(audio)
+        fj = disc.judge(leaf)
+        loss = sum(generator_loss(f[0]) + feature_matching_loss(r[1], f[1]) for r, f in zip(real, fj))
+        loss.backward(inputs=[leaf])
+
+    disc_ms = {"D": statistics.median(device_ms(d_part, samples=5)),
+               "G": statistics.median(device_ms(g_part, samples=5))}
+    disc.zero_grad(set_to_none=True)
+    wall = {"D": d_ms, "G": g_ms}
+    for side in ("D", "G"):
+        total = sum(fams[side].values())
+        if not total:
+            raise AssertionError("torch.profiler recorded no device time for a GAN step")
+        print(f"profile GAN {side} step " + json.dumps({
+            "config": "mel_24k_base", "n_timesteps": GAN_STEPS, "batch": 16, "seconds_per_item": 1.5,
+            "device_ms": total, "device_kernels": sum(counts[side]), "by_family_ms": fams[side],
+            "discriminators_alone_ms": disc_ms[side],
+            "discriminators_share_of_device_ms": disc_ms[side] / total,
+            "step_ms_median_fine_tuner": wall[side], "device_busy_share": total / wall[side],
+            "card": card}))
+
+    # --remat-rollout against plain, with the same weights and draws; plain
+    # twice, to show what the card's own run-to-run order changes
+    params_g = list(gen.parameters())
+    g_draws = draws(True, 13)
+    runs = {}
+    for name, remat in (("plain", False), ("remat", True), ("plain_again", False)):
+        _, g_fn = make_gan_loss_fns(gen, disc, mel, recon, n_timesteps=GAN_STEPS, remat_rollout=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        fused.launches = fused.adjoint_launches = 0
+        loss, _ = g_fn(batch, g_draws)
+        loss.backward(inputs=params_g)
+        torch.cuda.synchronize()
+        runs[name] = {"loss": loss.item(), "grads": [p.grad.detach().clone() for p in params_g],
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "base_gb": base_gb,
+                      "launches": (fused.launches, fused.adjoint_launches)}
+        gen.zero_grad(set_to_none=True)
+        del loss
+
+    def rel(a, b):
+        num = math.sqrt(sum((x.double() - y.double()).norm().item() ** 2 for x, y in zip(a, b)))
+        return num / math.sqrt(sum(y.double().norm().item() ** 2 for y in b))
+
+    plain, remat = runs["plain"], runs["remat"]
+    report = {
+        "loss_rel_err": abs(remat["loss"] - plain["loss"]) / abs(plain["loss"]),
+        "grad_rel_err_all": rel(remat["grads"], plain["grads"]),
+        "plain_vs_plain_grad_rel_err_all": rel(runs["plain_again"]["grads"], plain["grads"]),
+        **{f"{k}_{name}": runs[name][k] for name in ("plain", "remat")
+           for k in ("peak_gb", "base_gb", "launches")}}
+    print("GAN G step, --remat-rollout against plain " + json.dumps({
+        "config": "mel_24k_base", "n_timesteps": GAN_STEPS, "batch": 16, **report, "card": card}))
+    # the recompute runs each Euler step's forward again up to the last
+    # tensor backward needs (torch.utils.checkpoint stops there): the third
+    # branch's iSTFT saves nothing, so 2 of the 3 forward launches rerun
+    n = 3 * GAN_STEPS
+    if (plain["launches"] != (n, n) or remat["launches"] != (n + 2 * GAN_STEPS, n)
+            or not (report["loss_rel_err"] <= REMAT_TOL and report["grad_rel_err_all"] <= REMAT_TOL)):
+        raise AssertionError(f"remat disagrees with plain: {report}")
+    return {"plain": plain["launches"], "remat": remat["launches"]}
+
+
+def gan_clis(card: str, root: Path, exp: Path) -> int:
+    """`save_averaged_model --load-gan` on the fine-tuner's checkpoints,
+    served at 4 steps, and `bin/infer --load-gan` over the CLI phase's corpus
+    files; returns bin/infer's launches."""
+    out = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "2",
+                                    "--load-gan", "true"])
+    served = get_model("mel_24k_base", checkpoint=out, device="cuda")
+    wav = served.infer(np.random.RandomState(0).randn(4, 100, 94).astype(np.float32),
+                       n_timesteps=GAN_STEPS)
+    if wav.shape != (4, 24064) or not torch.isfinite(wav).all():
+        raise AssertionError(f"the GAN average served {tuple(wav.shape)}")
+    cli = root / "cli"
+    recs = read_recording_manifest(cli / "recordings.jsonl.gz")
+    fused.launches = 0
+    written = infer.main(["--exp-dir", str(exp), "--epoch", "2", "--load-gan", "true",
+                          "--n-timesteps", str(GAN_STEPS),
+                          "--recordings", str(cli / "recordings.jsonl.gz"),
+                          "--root-path", str(root / "valid"), "--output-dir", str(cli / "infer_gan"),
+                          "--batch-size", "4", "--num-workers", "2", "--device", "cuda"])
+    launches = fused.launches
+    for rec, path in zip(recs, written):
+        got, sr = read_wav(path)
+        if sr != 24000 or got.shape != (1, rec.num_samples) or not np.isfinite(got).all():
+            raise AssertionError(f"bin/infer --load-gan wrote {path} at {sr} Hz, shape {got.shape}")
+    if len(written) != len(recs) or launches != 3 * GAN_STEPS * 2:  # 6 files in batches of 4
+        raise AssertionError(f"bin/infer --load-gan wrote {len(written)} files with {launches} launches")
+    print("GAN CLIs " + json.dumps({"averaged": out.name, "served_shape": list(wav.shape),
+                                    "infer_files": len(written), "infer_launches": launches,
+                                    "card": card}))
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -947,6 +1374,9 @@ def main() -> int:
         print("adjoint shape " + json.dumps(adjoint_shapes[-1]))
     for shape in EDGE_SHAPES:
         print("adjoint edge " + json.dumps(check_adjoint_shape(*shape[:5], timed=False)))
+    for shape in GAN_SHAPES:
+        print("istft GAN shape " + json.dumps(check_istft_shape(*shape, real_edges=True, timed=False)))
+        print("adjoint GAN shape " + json.dumps(check_adjoint_shape(*shape, timed=False)))
 
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
@@ -963,10 +1393,18 @@ def main() -> int:
     del model
     card44_launches = card_vs_cpu_44k(card)
     grads_card_vs_cpu(card)
+    discriminators_card_vs_cpu(card)
+    gan_grad_launches = gan_grads_card_vs_cpu(card)
     root = Path(__file__).resolve().parent / "build" / "smoke_train"
     train_launches, exp, averaged = trainer(card, root)
     bf16_train_launches = bf16_trainer(card, root)
     cli_launches = clis(card, root, exp, averaged)
+    for path in [*exp.glob("*.pt"), *(root / "exp_bf16").glob("*.pt")]:
+        if path != averaged:
+            path.unlink()  # several GB of FM checkpoints
+    gan = gan_finetune(card, root, averaged)
+    remat_launches = gan_step_profiles(card, averaged, gan["d_ms"], gan["g_ms"])
+    gan_cli_launches = gan_clis(card, root, gan["exp"])
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
@@ -982,7 +1420,16 @@ def main() -> int:
             "serving_44k_1_step": launches44, "card_vs_cpu_44k_1_step": card44_launches,
             "training_f32_32_steps": train_launches["forward"],
             "training_bf16_8_steps": bf16_train_launches["forward"],
-            **{f"cli_{k}": v for k, v in cli_launches.items()}},
+            **{f"cli_{k}": v for k, v in cli_launches.items()},
+            "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][0],
+            "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][0],
+            "gan_finetune_4_steps_32_batches": gan["launches"]["forward"],
+            "gan_finetune_d_steps": gan["launches"]["d_steps"],
+            "gan_finetune_g_steps": gan["launches"]["g_steps_forward"],
+            "gan_finetune_validation": gan["launches"]["validation"],
+            "gan_g_step_plain": remat_launches["plain"][0],
+            "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
+            "cli_infer_load_gan_4_steps": gan_cli_launches},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),
         "ms": sum(s["ms"] for s in step),
@@ -1002,7 +1449,15 @@ def main() -> int:
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:222",
         "launches": train_launches["adjoint"],
         "launches_by_path": {"training_f32_32_steps": train_launches["adjoint"],
-                             "training_bf16_8_steps": bf16_train_launches["adjoint"]},
+                             "training_bf16_8_steps": bf16_train_launches["adjoint"],
+                             "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][1],
+                             "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][1],
+                             "gan_finetune_4_steps_32_batches": gan["launches"]["adjoint"],
+                             "gan_finetune_d_steps": 0,
+                             "gan_finetune_g_steps": gan["launches"]["g_steps_adjoint"],
+                             "gan_finetune_validation": 0,
+                             "gan_g_step_plain": remat_launches["plain"][1],
+                             "gan_g_step_remat": remat_launches["remat"][1]},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes),
         "ms": sum(s["ms"] for s in train_step),

@@ -1,0 +1,328 @@
+#!/usr/bin/env python3
+"""GAN fine-tuning (stage 2) of the port, on one card.
+
+The counterpart of `flow2gan_tpu/bin/finetune.py`, with its flag names and
+defaults for what is ported, and `--device` (default cuda; the tests pass
+cpu). The generator starts from `--generator-model-path`: the FM trainer's
+epoch checkpoint or averaged `.pt`, or a checkpoint in the reference's
+naming. Branch dropout is off. The discriminators (MPD + MRD) start from
+flax's default init. The first `--gen-start-batch-idx` batches train the
+discriminators alone; then D and G steps strictly alternate, each with its
+own ScaledAdam and Eden2 lr. Every D step rolls the generator out in eval
+form (3n fused-iSTFT launches); every G step differentiates the train-form
+n-step rollout (3n forward and 3n adjoint launches). `--remat-rollout true`
+recomputes each Euler step in backward.
+
+    python -m flow2gan_tpu_torch.bin.finetune --exp-dir exp/gan_4step \\
+        --model-name mel_24k_base --generator-model-path exp/fm/averaged.pt \\
+        --n-timesteps 4 --train-recordings data/train.jsonl.gz --batch-size 64
+
+Checkpoints: epoch-0.pt (the initial state), epoch-N.pt at the end of each
+epoch and checkpoint-<batch>.pt every --save-every-n batches (the last
+--keep-last-k kept). Each holds both models and both optimizers, the
+generator's float64 running average and the D/G alternation state, so
+--start-epoch resumes exactly; `bin/save_averaged_model.py --load-gan true`
+exports the generator.
+
+A flag that is not ported yet raises and names the item of ROADMAP.md that
+ports it; it is never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import random
+import time
+from pathlib import Path
+from typing import List
+
+import numpy as np
+import torch
+
+from flow2gan_tpu_torch.api import init_weights
+from flow2gan_tpu_torch.bin.pretrain import (
+    OBSERVABILITY,
+    SHARED_OPTIONS,
+    TOKEN_FAMILY,
+    _manifests,
+    _to_device,
+    check_ported,
+)
+from flow2gan_tpu_torch.compat.from_reference import load_weights
+from flow2gan_tpu_torch.data.dataset import build_data_loader
+from flow2gan_tpu_torch.models import build_generator, get_gan_config, get_generator_config
+from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
+from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
+from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
+from flow2gan_tpu_torch.ops.stft import num_frames
+from flow2gan_tpu_torch.training import checkpoint as ckpt
+from flow2gan_tpu_torch.training.gan_step import GANLossScales, make_gan_steps
+from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
+from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr
+from flow2gan_tpu_torch.training.train_step import step_generator
+from flow2gan_tpu_torch.utils import MetricsTracker, disable_tf32, setup_logger, str2bool
+
+# flags of the JAX trainer that the port does not run yet: (attribute, its
+# default, the ROADMAP.md item that ports it)
+_LATER = (
+    ("tokenizer", None, TOKEN_FAMILY),
+    ("train_dls_weights", None, SHARED_OPTIONS),
+    ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
+    ("print_diagnostics", False, OBSERVABILITY),
+    ("inf_check", False, OBSERVABILITY),
+    ("tensorboard", False, OBSERVABILITY),
+    ("profile_dir", None, OBSERVABILITY),
+    ("freeze_modules", None, SHARED_OPTIONS),
+    ("lr_scale_rules", None, SHARED_OPTIONS),
+    ("resume_from", None, SHARED_OPTIONS),
+)
+_G_METRICS = ("loss_g", "gen_loss_mp", "gen_loss_mr", "feat_map_loss_mp", "feat_map_loss_mr",
+              "mel_recon_loss")
+_D_METRICS = ("loss_d", "disc_loss_mp", "disc_loss_mr")
+
+
+def get_parser():
+    parser = argparse.ArgumentParser(
+        description="GAN fine-tuning of the PyTorch port",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    parser.add_argument("--exp-dir", type=Path, default=Path("exp/gan"))
+    parser.add_argument("--model-name", type=str, default="mel_24k_base")
+    parser.add_argument("--gan-name", type=str, default="gan_multi_scale_mel_recon")
+    parser.add_argument("--generator-model-path", type=str, default=None,
+                        help="The FM trainer's checkpoint or averaged .pt, or a reference-named .pt")
+    parser.add_argument("--tokenizer", type=str, default=None, help="not ported yet")
+    parser.add_argument("--n-timesteps", type=int, default=1)
+    parser.add_argument("--num-epochs", type=int, default=20)
+    parser.add_argument("--start-epoch", type=int, default=1,
+                        help="Resume from epoch-{start-epoch-1}.pt when > 1")
+    parser.add_argument("--lr-g", type=float, default=0.002)
+    parser.add_argument("--lr-d", type=float, default=0.02)
+    parser.add_argument("--lr-batches-g", type=float, default=20000)
+    parser.add_argument("--lr-batches-d", type=float, default=5000)
+    parser.add_argument("--warmup-batches", type=float, default=500,
+                        help="Eden2 linear-warmup length in batches")
+    parser.add_argument("--warmup-start", type=float, default=0.1,
+                        help="Eden2 warmup starting fraction (the reference trainer's 0.1)")
+    parser.add_argument("--batch-size", type=int, default=64)
+    parser.add_argument("--duration", type=float, default=1.5)
+    parser.add_argument("--max-load-times", type=int, default=3)
+    parser.add_argument("--train-recordings", type=str, required=False,
+                        help="CSV of recordings.jsonl[.gz] manifests")
+    parser.add_argument("--train-dls-weights", type=str, default=None, help="not ported yet")
+    parser.add_argument("--valid-recordings", type=str, required=False)
+    parser.add_argument("--test-recordings", type=str, required=False, help="not ported yet")
+    parser.add_argument("--num-workers", type=int, default=8)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--disc-loss-mp-scale", type=float, default=1.0)
+    parser.add_argument("--disc-loss-mr-scale", type=float, default=0.1)
+    parser.add_argument("--gen-loss-mp-scale", type=float, default=1.0)
+    parser.add_argument("--gen-loss-mr-scale", type=float, default=0.1)
+    parser.add_argument("--feat-map-loss-mp-scale", type=float, default=1.0)
+    parser.add_argument("--feat-map-loss-mr-scale", type=float, default=0.1)
+    parser.add_argument("--mel-recon-loss-scale", type=float, default=45.0)
+    parser.add_argument("--gen-start-batch-idx", type=int, default=1000,
+                        help="D-only warmup length before alternation starts")
+    parser.add_argument("--average-period", type=int, default=200)
+    parser.add_argument("--log-interval", type=int, default=50)
+    parser.add_argument("--valid-interval", type=int, default=1000)
+    parser.add_argument("--save-every-n", type=int, default=4000)
+    parser.add_argument("--keep-last-k", type=int, default=30)
+    parser.add_argument("--tensorboard", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--inf-check", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--print-diagnostics", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--profile-dir", type=str, default=None, help="not ported yet")
+    parser.add_argument("--remat-rollout", type=str2bool, default=False,
+                        help="Recompute each Euler step of the G step's rollout in backward")
+    parser.add_argument("--freeze-modules", type=str, default=None, help="not ported yet")
+    parser.add_argument("--lr-scale-rules", type=str, default=None, help="not ported yet")
+    parser.add_argument("--resume-from", type=str, default=None, help="not ported yet")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (the card), or cpu for the tests")
+    return parser
+
+
+def run(args) -> List[dict]:
+    """Fine-tune; returns one record per batch: batch index, side ("D" or
+    "G"), loss, lr, clip_scale and the step's wall ms (to the loss's arrival
+    on the host)."""
+    check_ported(args, _LATER)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+        disable_tf32()
+    exp_dir = Path(args.exp_dir)
+    exp_dir.mkdir(parents=True, exist_ok=True)
+    setup_logger(f"{exp_dir}/log/log-train")
+    logging.info(f"GAN fine-tuning started: {vars(args)}")
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    cfg = get_generator_config(args.model_name)
+    cfg["branch_dropout"] = 0.0  # off in the GAN stage, as in the reference
+    gan_cfg = get_gan_config(args.gan_name)
+    generator = init_weights(build_generator(cfg), torch.Generator().manual_seed(args.seed))
+    if args.generator_model_path:
+        logging.info(f"Loading generator from {args.generator_model_path}")
+        load_weights(generator, args.generator_model_path)
+    generator.to(device)
+    discriminators = init_discriminators(
+        Discriminators(), torch.Generator().manual_seed(args.seed)).to(device)
+    mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
+                               hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
+    mel_recon_fns = make_mel_recon_fns(cfg.sampling_rate, gan_cfg.mel_recon_n_ffts,
+                                       gan_cfg.mel_recon_n_mels).to(device)
+    optimizer_g = ScaledAdam(generator.named_parameters(), clipping_scale=2.0)
+    optimizer_d = ScaledAdam(discriminators.named_parameters(), clipping_scale=2.0)
+    scales = GANLossScales(
+        disc_mp=args.disc_loss_mp_scale, disc_mr=args.disc_loss_mr_scale,
+        gen_mp=args.gen_loss_mp_scale, gen_mr=args.gen_loss_mr_scale,
+        fmap_mp=args.feat_map_loss_mp_scale, fmap_mr=args.feat_map_loss_mr_scale,
+        mel_recon=args.mel_recon_loss_scale)
+    d_step, g_step, eval_step = make_gan_steps(
+        generator, discriminators, mel_fn, mel_recon_fns, optimizer_g, optimizer_d,
+        lr_g_fn=lambda b: eden2_lr(args.lr_g, b, args.lr_batches_g,
+                                   warmup_batches=args.warmup_batches,
+                                   warmup_start=args.warmup_start),
+        lr_d_fn=lambda b: eden2_lr(args.lr_d, b, args.lr_batches_d,
+                                   warmup_batches=args.warmup_batches,
+                                   warmup_start=args.warmup_start),
+        n_timesteps=args.n_timesteps, scales=scales, remat_rollout=args.remat_rollout)
+    logging.info(f"Parameters: generator {sum(p.numel() for p in generator.parameters())}, "
+                 f"discriminators {sum(p.numel() for p in discriminators.parameters())}")
+
+    model_avg = {k: v.detach().double().clone() for k, v in generator.state_dict().items()}
+    batch_idx_train, train_disc = 0, True
+    if args.start_epoch > 1:
+        resume = exp_dir / f"epoch-{args.start_epoch - 1}.pt"
+        if not resume.exists():
+            raise FileNotFoundError(f"--start-epoch {args.start_epoch} resumes from {resume}, "
+                                    "which does not exist")
+        logging.info(f"Resuming from {resume}")
+        loaded = ckpt.load_checkpoint(resume)
+        generator.load_state_dict(loaded["model"]["generator"])
+        discriminators.load_state_dict(loaded["model"]["discriminator"])
+        optimizer_g.load_state_dict(loaded["optimizer"]["g"])
+        optimizer_d.load_state_dict(loaded["optimizer"]["d"])
+        model_avg = {k: v.to(device) for k, v in loaded["model_avg"].items()}
+        batch_idx_train = int(loaded["batch_idx_train"])
+        train_disc = bool(loaded["train_disc"])
+
+    loader_kw = dict(sampling_rate=cfg.sampling_rate, num_workers=args.num_workers,
+                     duration=args.duration)
+    train_dls = [build_data_loader(recs, batch_size=args.batch_size, train=True,
+                                   max_load_times=args.max_load_times, seed=args.seed,
+                                   drop_last=True, **loader_kw)
+                 for recs in _manifests(args.train_recordings)]
+    valid_dls = [build_data_loader(recs, batch_size=min(args.batch_size, 16), train=False,
+                                   **loader_kw)
+                 for recs in (_manifests(args.valid_recordings) if args.valid_recordings else [])]
+
+    def save(filename, **extra):
+        ckpt.save_checkpoint(
+            filename,
+            model={"generator": generator.state_dict(),
+                   "discriminator": discriminators.state_dict()},
+            model_avg=model_avg,
+            optimizer_state={"g": optimizer_g.state_dict(), "d": optimizer_d.state_dict()},
+            train_params={"batch_idx_train": batch_idx_train, "train_disc": train_disc,
+                          "model_name": args.model_name, "n_timesteps": args.n_timesteps,
+                          **extra})
+
+    epoch0 = exp_dir / "epoch-0.pt"
+    if args.start_epoch == 1 and not epoch0.exists():
+        # so that a window (epoch-0, epoch-N] is defined for every N
+        save(epoch0)
+
+    def draws(audio, train: bool, gen: torch.Generator):
+        n_frames = num_frames(audio.shape[-1], cfg.mel_hop_length)
+        return generator.draw_rollout(audio.shape[0], n_frames, args.n_timesteps, gen, train)
+
+    guard = NonfiniteLossGuard()
+    history = []
+    for epoch in range(args.start_epoch, args.num_epochs + 1):
+        for dl in train_dls:
+            dl.set_epoch(epoch)
+        rng_py = random.Random(args.seed + epoch)
+        iters = [iter(dl) for dl in train_dls]
+        tot_g, tot_d = MetricsTracker(), MetricsTracker()
+        batch_idx = 0
+        while True:
+            dl_idx = rng_py.choices(range(len(iters)), k=1)[0]
+            try:
+                batch = next(iters[dl_idx])
+            except StopIteration:
+                logging.info(f"Reach end of dataloader {dl_idx}")
+                break
+            batch_idx += 1
+            batch_idx_train += 1
+            start = time.perf_counter()
+            dev_batch = _to_device(batch, device)
+            # the draws from the count of batches before this one
+            gen = step_generator(args.seed + 1, batch_idx_train - 1, device)
+            side = "D" if train_disc else "G"
+            if train_disc:
+                metrics = d_step(dev_batch, draws(dev_batch["audio"], False, gen))
+                keys, lr = _D_METRICS, metrics["lr_d"]
+                if batch_idx_train >= args.gen_start_batch_idx:
+                    train_disc = False
+            else:
+                metrics = g_step(dev_batch, draws(dev_batch["audio"], True, gen))
+                keys, lr = _G_METRICS, metrics["lr_g"]
+                train_disc = True
+            values = torch.stack([metrics[k] for k in keys]).tolist()
+            loss_val, clip_val = values[0], float(metrics["clip_scale"])
+            history.append({"batch_idx_train": batch_idx_train, "side": side, "loss": loss_val,
+                            "lr": lr, "clip_scale": clip_val,
+                            "ms": (time.perf_counter() - start) * 1e3})
+            n = batch["audio"].shape[0]
+            info = MetricsTracker()
+            info["samples"] = n
+            for k, v in zip(keys, values):
+                info[k] = v * n
+            if side == "D":
+                tot_d = tot_d + info
+            else:
+                tot_g = tot_g + info
+            guard.check(loss_val, clip_val, batch_idx_train,
+                        lambda suffix: save(exp_dir / f"bad-model{suffix}.pt"))
+
+            if batch_idx_train % args.average_period == 0:
+                model_avg = ckpt.update_averaged_model(model_avg, generator.state_dict(),
+                                                       args.average_period, batch_idx_train)
+            if batch_idx_train % args.save_every_n == 0:
+                save(exp_dir / f"checkpoint-{batch_idx_train}.pt")
+                ckpt.remove_checkpoints(exp_dir, topk=args.keep_last_k)
+            if batch_idx_train % args.log_interval == 0:
+                logging.info(f"Epoch {epoch}, batch {batch_idx}, global {batch_idx_train}, "
+                             f"{side} loss {loss_val:.4f}, lr {lr:.2e}, clip {clip_val:.3f}; "
+                             f"G avg: {tot_g}; D avg: {tot_d}")
+            if args.valid_interval > 0 and batch_idx_train % args.valid_interval == 0 and valid_dls:
+                valid = MetricsTracker()
+                vgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+                for dl in valid_dls:
+                    for vb in dl:
+                        vb = _to_device(vb, device)
+                        m = eval_step(vb, draws(vb["audio"], False, vgen))
+                        n = vb["audio"].shape[0]
+                        valid["samples"] += n
+                        for k in ("loss_g", "mel_recon_loss"):
+                            valid[k] += float(m[k]) * n
+                logging.info(f"Epoch {epoch}, validation: {valid}")
+                if device.type == "cuda":
+                    logging.info(f"Peak device memory "
+                                 f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+
+        save(exp_dir / f"epoch-{epoch}.pt")
+    logging.info("Done!")
+    return history
+
+
+def main(argv=None):
+    run(get_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -9,7 +9,9 @@ The weights (`resolve_params`) come from --checkpoint (the port's `.pt`, a
 trainer checkpoint, or a released checkpoint in the reference's naming), from
 --epoch N (exp-dir/epoch-N.pt), or from --epoch N --avg K: the window
 (epoch-{N-K}, epoch-N] of the trainer's running averages, or with
---use-averaged-model false the plain mean of epochs N-K+1..N.
+--use-averaged-model false the plain mean of epochs N-K+1..N. With
+--load-gan true they are the GAN trainer's checkpoints, and their generator
+is taken.
 --hf-model-name names a released model: it picks the config and the step
 count and needs its file as --checkpoint (the port downloads nothing).
 Outputs keep the manifest's paths, relative to --root-path, under
@@ -52,7 +54,8 @@ def get_parser():
     parser.add_argument("--avg", type=int, default=None, help="Average over the last K epochs")
     parser.add_argument("--use-averaged-model", type=str2bool, default=True,
                         help="With --avg: use running-average differencing")
-    parser.add_argument("--load-gan", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--load-gan", type=str2bool, default=False,
+                        help="The checkpoint is the GAN trainer's: take its generator")
     parser.add_argument("--recordings", type=str, required=True,
                         help="recordings.jsonl[.gz] manifest to reconstruct")
     parser.add_argument("--root-path", type=str, default=None,
@@ -71,10 +74,8 @@ def get_parser():
 
 def resolve_params(args, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The state dict the flags name, in the port's naming."""
-    if args.load_gan:
-        raise NotImplementedError("--load-gan is not ported yet: ROADMAP.md, slice 5, GAN")
     if args.checkpoint:
-        return to_port_state_dict(load_torch_file(args.checkpoint), model)
+        return to_port_state_dict(load_torch_file(args.checkpoint, args.load_gan), model)
     if args.hf_model_name:
         raise FileNotFoundError(
             f"--hf-model-name {args.hf_model_name} needs its checkpoint: the port downloads "
@@ -88,9 +89,10 @@ def resolve_params(args, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
             return ckpt.average_checkpoints_with_averaged_model(start, end)
         files = [exp_dir / f"epoch-{e}.pt" for e in range(args.epoch - args.avg + 1, args.epoch + 1)]
         logging.info(f"Plain average of {len(files)} checkpoints")
-        return ckpt.average_checkpoints(files)
+        return ckpt.average_checkpoints(files, load_gan=args.load_gan)
     if args.epoch is not None:
-        return to_port_state_dict(load_torch_file(exp_dir / f"epoch-{args.epoch}.pt"), model)
+        return to_port_state_dict(
+            load_torch_file(exp_dir / f"epoch-{args.epoch}.pt", args.load_gan), model)
     raise ValueError("Provide --checkpoint, --hf-model-name, or --epoch")
 
 
@@ -108,8 +110,8 @@ def main(argv=None) -> List[Path]:
     """Reconstruct every recording of the manifest; returns the written paths."""
     args = get_parser().parse_args(argv)
     if args.tokenizer is not None:
-        raise NotImplementedError("--tokenizer is not ported yet: ROADMAP.md, slice 7, "
-                                  "the token family")
+        raise NotImplementedError("--tokenizer is not ported yet: ROADMAP.md, "
+                                  "'The token family'")
     if args.hf_model_name is not None and args.hf_model_name not in HF_MODEL_NAMES:
         raise ValueError(f"Unknown released model {args.hf_model_name!r}; available: "
                          f"{sorted(HF_MODEL_NAMES)}")

@@ -113,7 +113,7 @@ def main(argv=None) -> List[Path]:
     args = get_parser().parse_args(argv)
     if args.tokens or args.tokenizer is not None:
         raise NotImplementedError("--tokens and --tokenizer are not ported yet: ROADMAP.md, "
-                                  "slice 7, the token family")
+                                  "'The token family'")
     args.output_dir.mkdir(parents=True, exist_ok=True)
     setup_logger(f"{args.output_dir}/log/log-infer-dir")
     logging.info(vars(args))

@@ -15,7 +15,7 @@ running average that `bin/save_averaged_model.py` averages over.
         --model-name mel_24k_base --train-recordings data/train.jsonl.gz \
         --valid-recordings data/valid.jsonl.gz --batch-size 64
 
-A flag that is not ported yet raises and names the slice of ROADMAP.md that
+A flag that is not ported yet raises and names the item of ROADMAP.md that
 ports it; it is never ignored.
 """
 
@@ -42,20 +42,27 @@ from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr
 from flow2gan_tpu_torch.training.train_step import fm_eval_loss, fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import MetricsTracker, disable_tf32, setup_logger, str2bool
 
+# the ROADMAP.md items (queue 1, by title) that port what the trainers do not
+# run yet
+SHARED_OPTIONS = "ROADMAP.md, 'The trainers' shared options'"
+OBSERVABILITY = "ROADMAP.md, 'Observability'"
+TOKEN_FAMILY = "ROADMAP.md, 'The token family'"
+DDP = "ROADMAP.md, 'DDP'"
+
 # flags of the JAX trainer that the port does not run yet: (attribute, its
-# default, the ROADMAP.md slice that ports it)
+# default, the ROADMAP.md item that ports it)
 _LATER = (
-    ("tokenizer", None, "slice 7, the token family"),
-    ("train_dls_weights", None, "slice 5, the trainers' shared options"),
-    ("test_recordings", None, "slice 8, observability (TensorBoard sample dumps)"),
-    ("save_infer_steps", "2,4,8", "slice 8, observability (TensorBoard sample dumps)"),
-    ("print_diagnostics", False, "slice 8, observability"),
-    ("inf_check", False, "slice 8, observability"),
-    ("tensorboard", False, "slice 8, observability"),
-    ("profile_dir", None, "slice 8, observability"),
-    ("freeze_modules", None, "slice 5, the trainers' shared options"),
-    ("lr_scale_rules", None, "slice 5, the trainers' shared options"),
-    ("resume_from", None, "slice 5, the trainers' shared options"),
+    ("tokenizer", None, TOKEN_FAMILY),
+    ("train_dls_weights", None, SHARED_OPTIONS),
+    ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
+    ("save_infer_steps", "2,4,8", OBSERVABILITY + " (TensorBoard sample dumps)"),
+    ("print_diagnostics", False, OBSERVABILITY),
+    ("inf_check", False, OBSERVABILITY),
+    ("tensorboard", False, OBSERVABILITY),
+    ("profile_dir", None, OBSERVABILITY),
+    ("freeze_modules", None, SHARED_OPTIONS),
+    ("lr_scale_rules", None, SHARED_OPTIONS),
+    ("resume_from", None, SHARED_OPTIONS),
 )
 
 
@@ -108,14 +115,15 @@ def get_parser():
     return parser
 
 
-def check_ported(args) -> None:
-    """Raise on a flag the port does not run yet, naming its slice."""
-    for attr, default, later in _LATER:
+def check_ported(args, later=_LATER) -> None:
+    """Raise on a flag the port does not run yet, naming its ROADMAP.md item;
+    `later` lists them as (attribute, default, item)."""
+    for attr, default, item in later:
         if getattr(args, attr) != default:
             flag = "--" + attr.replace("_", "-")
-            raise NotImplementedError(f"{flag} is not ported yet: ROADMAP.md, {later}")
+            raise NotImplementedError(f"{flag} is not ported yet: {item}")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("multi-process training is not ported yet: ROADMAP.md, slice 6, DDP")
+        raise NotImplementedError(f"multi-process training is not ported yet: {DDP}")
 
 
 def _manifests(csv: str):

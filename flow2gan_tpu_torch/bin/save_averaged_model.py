@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Average the pretrainer's epoch checkpoints into one model `.pt` (a
+"""Average a trainer's epoch checkpoints into one generator `.pt` (a
 `state_dict`) that `api.get_model(checkpoint=...)` loads; the counterpart of
 `flow2gan_tpu/bin/save_averaged_model.py`.
 
@@ -8,7 +8,10 @@
 
 By default the average is over the window (epoch-{epoch-avg}, epoch-{epoch}]
 of the float64 running average; with --use-averaged-model false it is the
-plain mean of epochs epoch-avg+1 .. epoch.
+plain mean of epochs epoch-avg+1 .. epoch. `--load-gan true` reads the GAN
+trainer's checkpoints (`bin/finetune.py`) and keeps their generator: the
+running average is the generator's already, and the plain mean takes each
+checkpoint's "generator" entry.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ def get_parser():
     parser.add_argument("--avg", type=int, required=True, help="Number of epochs to average")
     parser.add_argument("--use-averaged-model", type=str2bool, default=True,
                         help="Running-average differencing (reference default)")
-    parser.add_argument("--load-gan", type=str2bool, default=False, help="not ported yet")
+    parser.add_argument("--load-gan", type=str2bool, default=False,
+                        help="The checkpoints are the GAN trainer's: keep their generator")
     parser.add_argument("--output", type=Path, default=None,
                         help="Output path (default exp-dir/averaged.pt)")
     return parser
@@ -41,8 +45,6 @@ def get_parser():
 
 def main(argv=None) -> Path:
     args = get_parser().parse_args(argv)
-    if args.load_gan:
-        raise NotImplementedError("--load-gan is not ported yet: ROADMAP.md, slice 5, GAN")
     out = args.output or (args.exp_dir / "averaged.pt")
     setup_logger(f"{args.exp_dir}/log/log-average")
     logging.info(vars(args))
@@ -60,7 +62,7 @@ def main(argv=None) -> Path:
         files = [args.exp_dir / f"epoch-{e}.pt" for e in range(args.epoch - args.avg + 1,
                                                                  args.epoch + 1)]
         logging.info(f"Plain average over {len(files)} checkpoints")
-        state = ckpt.average_checkpoints(files)
+        state = ckpt.average_checkpoints(files, load_gan=args.load_gan)
     out.parent.mkdir(parents=True, exist_ok=True)
     torch.save(state, out)
     logging.info(f"Saved averaged model to {out}")

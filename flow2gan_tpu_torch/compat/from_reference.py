@@ -45,12 +45,18 @@ _RENAMES = (
 )
 
 
-def load_torch_file(path: Union[str, Path]) -> StateDict:
+def load_torch_file(path: Union[str, Path], load_gan: bool = False) -> StateDict:
     """The tensors of a `.pt` file: a raw state dict, or the "model" entry of
-    a checkpoint container."""
+    a checkpoint container; with `load_gan`, the "generator" entry of a GAN
+    trainer checkpoint's "model". A GAN trainer checkpoint without
+    `load_gan` raises."""
     obj = torch.load(str(path), map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and isinstance(obj.get("model"), dict):
         obj = obj["model"]
+    if isinstance(obj.get("generator"), dict):
+        if not load_gan:
+            raise ValueError(f"{path} is a GAN checkpoint: pass --load-gan to take its generator")
+        obj = obj["generator"]
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 

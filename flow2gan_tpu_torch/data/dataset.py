@@ -15,7 +15,7 @@ own copy of `flow2gan_tpu/data/dataset.py`:
   refilled by repeating the others;
 - a thread-pool loader, deterministic per (seed, epoch).
 
-Per-process sharding waits for its slice (ROADMAP.md, slice 6, DDP).
+Per-process sharding waits for its item (ROADMAP.md, 'DDP').
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-from flow2gan_tpu_torch.models.config import get_generator_config  # noqa: F401
+from flow2gan_tpu_torch.models.config import get_gan_config, get_generator_config  # noqa: F401
 from flow2gan_tpu_torch.models.convnext import (  # noqa: F401
     AudioConvNeXt,
     CondEncoder,
@@ -6,7 +6,11 @@ from flow2gan_tpu_torch.models.convnext import (  # noqa: F401
     ConvNeXtDecoder,
     sinusoidal_pos_emb,
 )
-from flow2gan_tpu_torch.models.generator import FMDraws, MelAudioGenerator  # noqa: F401
+from flow2gan_tpu_torch.models.generator import (  # noqa: F401
+    FMDraws,
+    MelAudioGenerator,
+    RolloutDraws,
+)
 from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU  # noqa: F401
 
 # config keys the generator is built from: the model's and its FM loss's; the
@@ -33,6 +37,6 @@ def build_generator(config, istft_impl: str = "auto") -> MelAudioGenerator:
     if config.get("conditioning", "mel") == "tokens":
         raise NotImplementedError(
             "token-conditioned generators are not ported yet (ROADMAP.md, "
-            "'the token family')"
+            "'The token family')"
         )
     return MelAudioGenerator(**{k: config[k] for k in _MODEL_KEYS}, istft_impl=istft_impl)

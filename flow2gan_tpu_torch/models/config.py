@@ -126,3 +126,29 @@ def get_generator_config(model_name: str = "mel_24k_base") -> AttributeDict:
             f"available: {sorted(_GENERATOR_CONFIGS)}"
         )
     return AttributeDict(_GENERATOR_CONFIGS[model_name])
+
+
+# the GAN stage's multi-scale mel reconstruction loss: n_fft and mel count of
+# each scale (hop n_fft // 4)
+gan_multi_scale_mel_recon = {
+    "mel_recon_n_ffts": (32, 64, 128, 256, 512, 1024, 2048),
+    "mel_recon_n_mels": (5, 10, 20, 40, 80, 160, 320),
+}
+
+gan_single_scale_mel_recon = {
+    "mel_recon_n_ffts": (1024,),
+    "mel_recon_n_mels": (100,),
+}
+
+_GAN_CONFIGS = {
+    "gan_multi_scale_mel_recon": gan_multi_scale_mel_recon,
+    "gan_single_scale_mel_recon": gan_single_scale_mel_recon,
+}
+
+
+def get_gan_config(model_name: str) -> AttributeDict:
+    if model_name not in _GAN_CONFIGS:
+        raise ValueError(
+            f"Unsupported model name: {model_name}; available: {sorted(_GAN_CONFIGS)}"
+        )
+    return AttributeDict(_GAN_CONFIGS[model_name])

@@ -11,6 +11,12 @@ The loss's random draws (x0, t, the limiters' gates, the branch-dropout
 weights, the mel noise) are one `FMDraws`: training draws it on the device
 from a `torch.Generator` (`draw`), a test builds it from numpy, since JAX and
 torch draw different numbers from one seed.
+
+The GAN stage differentiates the whole n-step solve in train form
+(`rollout`), whose draws are one `RolloutDraws` (`draw_rollout`): x0, and
+the limiters' gates of each Euler step. The JAX package draws a fresh gate at
+every limiter call, so the cond encoder's limiters draw once per rollout and
+each branch's once per step.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from flow2gan_tpu_torch.models.convnext import AudioConvNeXt, CondEncoder
@@ -44,6 +51,21 @@ class FMDraws:
     gates: Optional[torch.Tensor] = None
     branch_weight: Optional[torch.Tensor] = None
     cond_noise: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class RolloutDraws:
+    """The random draws of one Euler rollout.
+
+    x0: (B, frames * mel_hop_length) noise endpoint, already scaled by
+    `init_noise_scale`;
+    gates: (n_timesteps, n_limiters) 0/1 floats, or None for the eval form.
+    Row s gates the branches' limiters at Euler step s; the cond encoder,
+    which runs once, reads its own limiters' entries of row 0.
+    """
+
+    x0: torch.Tensor
+    gates: Optional[torch.Tensor] = None
 
 
 def branch_dropout_weight(branch_idx: torch.Tensor, do_drop: torch.Tensor,
@@ -254,6 +276,13 @@ class MelAudioGenerator(nn.Module):
         return self.flow_matching_loss(draws.x0, audio, cond, audio_lens, t=draws.t,
                                        gates=draws.gates, branch_weight=draws.branch_weight)
 
+    def _euler_step(self, x: torch.Tensor, cond: torch.Tensor, t: float, dt: float,
+                    audio_lens: Optional[torch.Tensor], gates: Optional[torch.Tensor]):
+        t_vec = torch.full((x.shape[0],), t, dtype=x.dtype, device=x.device)
+        pred = self.process_model(x, cond, t_vec, audio_lens=audio_lens, gates=gates)
+        vt = (pred - x) / (1.0 - t) if self.pred_x1 else pred
+        return x + vt * dt
+
     def solve(
         self,
         noise: torch.Tensor,
@@ -261,16 +290,22 @@ class MelAudioGenerator(nn.Module):
         audio_lens: Optional[torch.Tensor] = None,
         n_timesteps: int = 1,
         clamp_pred: bool = False,
+        gates: Optional[torch.Tensor] = None,
+        remat: bool = False,
     ) -> torch.Tensor:
-        """Fixed-grid Euler solve from x0 = noise, unrolled (eval form)."""
+        """Fixed-grid Euler solve from x0 = noise, unrolled. `gates`
+        (n_timesteps, n_limiters) gives the train form, row s at step s;
+        None is the eval form. `remat` recomputes each step's forward in
+        backward (`torch.utils.checkpoint`) instead of keeping its
+        activations."""
         dt = 1.0 / n_timesteps
         x = noise
         for step in range(n_timesteps):
-            t = step * dt
-            t_vec = torch.full((noise.shape[0],), t, dtype=noise.dtype, device=noise.device)
-            pred = self.process_model(x, cond, t_vec, audio_lens=audio_lens)
-            vt = (pred - x) / (1.0 - t) if self.pred_x1 else pred
-            x = x + vt * dt
+            args = (x, cond, step * dt, dt, audio_lens, None if gates is None else gates[step])
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(self._euler_step, *args, use_reentrant=False)
+            else:
+                x = self._euler_step(*args)
         if clamp_pred:
             x = torch.clamp(x, -1.0, 1.0)
         return x
@@ -281,6 +316,38 @@ class MelAudioGenerator(nn.Module):
         if cond_noise is not None:
             cond = cond + cond_noise
         return self.cond_encoder(cond, gates=gates) if self.cond_encoder is not None else cond
+
+    def draw_rollout(self, batch: int, n_frames: int, n_timesteps: int,
+                     generator: torch.Generator, train: bool = True) -> RolloutDraws:
+        """The draws of one rollout over `n_frames` mel frames, from
+        `generator` (on its device): x0 ~ N(0, init_noise_scale^2), then in
+        training a Bernoulli(0.6) gate per limiter and step."""
+        dev = generator.device
+        x0 = torch.randn(batch, n_frames * self.mel_hop_length, generator=generator,
+                         device=dev) * self.init_noise_scale
+        if not train:
+            return RolloutDraws(x0)
+        gates = torch.rand(n_timesteps, self.num_limiters, generator=generator, device=dev) < 0.6
+        return RolloutDraws(x0, gates.float())
+
+    def rollout(
+        self,
+        cond: torch.Tensor,
+        draws: RolloutDraws,
+        audio_lens: Optional[torch.Tensor] = None,
+        n_timesteps: int = 1,
+        remat: bool = False,
+    ) -> torch.Tensor:
+        """The GAN stage's Euler solve from mels (B, n_mels, frames) to (B,
+        frames * mel_hop_length), unclamped: in train form when `draws` has
+        gates (differentiable through every step), else the eval form of
+        `infer_from_noise`. Branch dropout and mel noise stay off, as the
+        fine-tuning config sets them."""
+        gates = draws.gates
+        if gates is not None and gates.shape[0] != n_timesteps:
+            raise ValueError(f"gates hold {gates.shape[0]} steps, the solve takes {n_timesteps}")
+        cond = self._encode_cond(cond, gates=None if gates is None else gates[0])
+        return self.solve(draws.x0, cond, audio_lens, n_timesteps, gates=gates, remat=remat)
 
     def infer(
         self,

@@ -1,6 +1,7 @@
-"""Mel frontend and the FM loss's linear filterbank in PyTorch, counterpart
+"""Mel frontends and the FM loss's linear filterbank in PyTorch, counterpart
 of `flow2gan_tpu/ops/mel.py`: HTK mel scale, norm=None (torchaudio's
-`MelSpectrogram` defaults)."""
+`MelSpectrogram` defaults). `LogMelSpectrogram` conditions the generator;
+`MelSpectrogram` (no log) is a scale of the GAN stage's mel loss."""
 
 from __future__ import annotations
 
@@ -80,3 +81,24 @@ class LogMelSpectrogram(nn.Module):
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         mag = spectrogram(audio, self.n_fft, self.hop_length, power=1.0)
         return safe_log(mag @ self.fb).transpose(-1, -2)
+
+
+class MelSpectrogram(nn.Module):
+    """(B, L) waveform -> (B, n_mels, frames) mel-weighted |STFT|^power, with
+    no log: the frontend of one scale of the GAN stage's multi-scale mel
+    reconstruction loss (`models/gan.py`)."""
+
+    def __init__(self, sampling_rate: int, n_fft: int, hop_length: int, n_mels: int,
+                 power: float = 1.0):
+        super().__init__()
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.power = power
+        fb = melscale_fbanks(
+            n_fft // 2 + 1, 0.0, float(sampling_rate // 2), n_mels, sampling_rate
+        )
+        self.register_buffer("fb", torch.from_numpy(fb), persistent=False)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        mag = spectrogram(audio, self.n_fft, self.hop_length, power=self.power)
+        return (mag @ self.fb).transpose(-1, -2)

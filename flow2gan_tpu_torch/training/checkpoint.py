@@ -3,7 +3,10 @@
 
 A checkpoint is a `torch.save`d dict: the model's `state_dict` ("model"), the
 float64 running average of the parameters ("model_avg"), the optimizer's
-state and the trainer's own values (the batch count). Averaging:
+state and the trainer's own values (the batch count). The GAN trainer's
+"model" is `{"generator": ..., "discriminator": ...}`, its "optimizer"
+`{"g": ..., "d": ...}`, and its "model_avg" the generator's alone.
+Averaging:
 
 - the Polyak running average avg = cur * (period/step) + avg * (1 -
   period/step), in float64 (`update_averaged_model`);
@@ -25,6 +28,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
 import torch
+
+from flow2gan_tpu_torch.compat.from_reference import load_torch_file
 
 Pathlike = Union[str, Path]
 StateDict = Dict[str, torch.Tensor]
@@ -83,13 +88,14 @@ def update_averaged_model(model_avg: StateDict, model_cur: StateDict, average_pe
     return average_state_trees(model_avg, model_cur, 1.0 - weight_cur, weight_cur)
 
 
-def average_checkpoints(filenames: List[Pathlike]) -> StateDict:
-    """Plain mean of the "model" entries of N checkpoints, as float32."""
+def average_checkpoints(filenames: List[Pathlike], load_gan: bool = False) -> StateDict:
+    """Plain mean of the "model" entries of N checkpoints (with `load_gan`,
+    of a GAN checkpoint's generator: `load_torch_file`), as float32."""
     if not filenames:
         raise ValueError("no checkpoints to average")
-    avg = {k: v.double() for k, v in load_checkpoint(filenames[0])["model"].items()}
+    avg = {k: v.double() for k, v in load_torch_file(filenames[0], load_gan).items()}
     for fname in filenames[1:]:
-        for k, v in load_checkpoint(fname)["model"].items():
+        for k, v in load_torch_file(fname, load_gan).items():
             avg[k] += v.double()
     return {k: (v / len(filenames)).float() for k, v in avg.items()}
 

@@ -132,8 +132,10 @@ def test_resolve_requires_source(tiny_ckpts):
         infer.resolve_params(_args(d), build_generator(TINY))
     with pytest.raises(FileNotFoundError, match="downloads nothing"):
         infer.resolve_params(_args(d, hf_model_name="libritts-mel-1-step"), build_generator(TINY))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        infer.resolve_params(_args(d, epoch=1, load_gan=True), build_generator(TINY))
+    # a checkpoint with no GAN generator to unwrap is taken as it is
+    plain = infer.resolve_params(_args(d, epoch=1), build_generator(TINY))
+    unwrapped = infer.resolve_params(_args(d, epoch=1, load_gan=True), build_generator(TINY))
+    assert all(torch.equal(plain[k], unwrapped[k]) for k in plain)
 
 
 def _write_manifest(path, wavs):
@@ -191,7 +193,7 @@ def test_infer_runs_the_windowed_average_over_a_manifest(tiny_ckpts, tmp_path):
         out, sr = audio_io.read_wav(out_dir / w.relative_to(root))
         assert sr == 24000 and out.shape[-1] == audio_io.read_wav(w)[0].shape[-1]
         assert np.isfinite(out).all() and np.abs(out).max() > 0
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="'The token family'"):
         infer.main(["--tokenizer", "c.npz", "--recordings", str(man), "--output-dir",
                     str(out_dir), "--device", "cpu"])
 
@@ -227,7 +229,7 @@ def test_infer_dir_whole_chunked_and_mel(tiny_ckpts, tmp_path):
                           str(tmp_path / "from_mel"), "--mel", "true"])
     assert [audio_io.read_wav(p)[0].shape for p in out] == [(1, 13 * 64), (1, 7 * 64)]
     for flag in (["--tokens", "true"], ["--tokenizer", "c.npz"]):
-        with pytest.raises(NotImplementedError, match="slice 7"):
+        with pytest.raises(NotImplementedError, match="'The token family'"):
             infer_dir.main([*common, "--input-dir", str(mel_dir), "--output-dir",
                             str(tmp_path / "x"), *flag])
 
