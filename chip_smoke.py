@@ -76,8 +76,37 @@ prints no result line):
       gradients, peak memory and forward launches of each;
    g. `save_averaged_model --load-gan` on the fine-tuner's checkpoints and
       `bin/infer --load-gan` over corpus files at 4 steps;
-16. the `kernels` JSON line (each kernel's launches on every path), then the
-   card line and the result line.
+16. data parallelism (`parallel/dist.py`), 2 ranks as spawned processes, at
+   full mel_24k_base width with the full discriminators; one rank per card
+   over NCCL where there are 2 cards, else both ranks on card 0 over gloo
+   (the backend is printed); both kernels against their plain versions at
+   the per-rank shapes (batch 8) with the other kernel checks above:
+   a. one FM step as 2 ranks of 8 rows against one process on the global
+      batch of 16 x 1.5 s (the second rank's valid lengths shorter), with
+      the same weights and draws: loss, and every summed gradient within the
+      FM card limits; the ranks' parameters bitwise equal after the step;
+      with one card, the step again in a one-rank NCCL group, so that NCCL's
+      init and all-reduce run on the card;
+   b. a 4-step GAN D step and G step, the same way, within the D and G
+      limits of 15c (each tensor 1e-2 of its norm plus four floors, the
+      whole 2.5e-4 plus two), the floor here being how far one process's
+      gradient moves when it computes the global batch as two halves and
+      sums them, as the ranks do;
+   c. `bin/pretrain.py` as 2 processes (global batch 16, 6 steps): step ms
+      and audio per second at the global batch, peak memory per rank, the
+      all-reduces' ms per step (CUDA events: the gradient buckets and the
+      small ones apart), each rank's device time in its last step
+      (profiled; NCCL's kernels, which spin while they wait, apart) and
+      busy share, both kernels' launches per rank, and that
+      only rank 0 wrote checkpoints and a log;
+17. resume: `bin/pretrain.py` (4 steps) and `bin/finetune.py` (4 Euler
+   steps, batches D, D, G, D, `--freeze-modules cond_encoder`) run
+   straight twice and once with `--resume-from checkpoint-2.pt`: the
+   resumed run within 4 times the straight runs' own spread, the D/G
+   alternation and the sampler continued, the frozen tensors bitwise
+   unchanged;
+18. the `kernels` JSON line (each kernel's launches on every path, the
+   data-parallel ones per rank), then the card line and the result line.
 """
 
 from __future__ import annotations
@@ -85,8 +114,10 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -95,6 +126,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed
+import torch.multiprocessing
 
 from flow2gan_tpu_torch import get_model
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
@@ -116,6 +149,8 @@ from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import envelope, hann_window_np
+from flow2gan_tpu_torch.parallel import dist
+from flow2gan_tpu_torch.parallel.dist import Shard
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.gan_step import make_gan_loss_fns, make_gan_steps
 from flow2gan_tpu_torch.training.optim import ScaledAdam
@@ -138,7 +173,8 @@ CARD_VS_CPU_TOL = 1e-4  # whole model, relative to max|CPU|
 LOSS_TOL = 1e-6  # relative
 GRAD_TOL = 2.5e-4  # |grad_card - grad_cpu| / |grad_cpu| over all parameters
 GRAD_TENSOR_TOL = 1e-2  # the same for each parameter tensor
-TRACE_DIR = Path(__file__).resolve().parent / "build" / "traces"  # read, then deleted
+ROOT = Path(__file__).resolve().parent / "build"
+TRACE_DIR = ROOT / "traces"  # read, then deleted
 TIMED_SAMPLES = 25
 TIMED_CALLS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms of GPU spin ahead of each timed sample
@@ -187,6 +223,15 @@ GAN_BATCHES = 32  # 2 epochs of phase 10's corpus at batch 16
 GAN_WARMUP = 4  # D-only batches before D/G alternation
 DISC_VS_CPU_TOL = 1e-4  # each score and feature map, relative to max|CPU|
 REMAT_TOL = 1e-6  # remat against plain: loss and whole gradient, relative
+# the data-parallel phases: 2 ranks of 8 against one process of 16, 1.5 s
+# crops, the second rank's rows shorter in part (its loss count differs)
+DIST_WORLD = 2
+DIST_BATCH = 16
+DIST_LENGTH = 36000
+DIST_LENS = [DIST_LENGTH] * 12 + [33000, 30000, 27000, 24000]
+# (n_fft, hop, batch, t_f, length): each rank's iSTFT shapes in those phases
+RANK_SHAPES = [(n, h, DIST_BATCH // DIST_WORLD, t, length)
+               for n, h, _, t, length in TRAIN_SHAPES + GAN_SHAPES]
 TRAIN_STEPS = 32  # 2 epochs of a 256-recording corpus at batch 16
 TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
@@ -487,10 +532,16 @@ def _dev_us(e):  # the attribute's name differs across torch versions
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
 
+NCCL_FAMILY = "nccl collectives (with their waits)"
+
+
 def _family(name: str) -> str:
     for key in ("fused_istft_adjoint", "fused_istft", "conv_depthwise"):
         if key in name:
             return key
+    if name.startswith("nccl"):
+        # a collective's kernel spins on the card until every rank arrives
+        return NCCL_FAMILY
     return "gemm" if _GEMM_NAMES.search(name) else "elementwise, reductions, copies"
 
 
@@ -1333,6 +1384,407 @@ def gan_clis(card: str, root: Path, exp: Path) -> int:
     return launches
 
 
+# --------------------------------------------------- data parallelism (16)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank_entry(rank: int, world: int, out_dir: str, fn_name: str, spec: dict) -> None:
+    """One spawned rank: torchrun's environment, then `fn_name(spec)`, whose
+    result it saves as rank<r>.pt. `spec["group"]` is "port" (the trainers'
+    own `init_distributed` joins the group from the environment), "nccl1" (a
+    one-rank NCCL group, joined here) or "trainer" (the trainer joins)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(spec["port"]))
+    disable_tf32()
+    if spec["group"] == "nccl1":
+        torch.cuda.set_device(0)
+        torch.distributed.init_process_group("nccl", rank=0, world_size=1)
+    elif spec["group"] == "port":
+        dist.init_distributed(spec["device"])
+    try:
+        torch.save(globals()[fn_name](spec), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy()
+
+
+def spawn_ranks(world: int, fn_name: str, spec: dict, out: Path) -> list:
+    """Run `fn_name(spec)` in `world` spawned processes; their results in
+    rank order."""
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    torch.multiprocessing.spawn(rank_entry, args=(world, str(out), fn_name,
+                                                  {**spec, "port": free_port()}), nprocs=world)
+    results = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    shutil.rmtree(out, ignore_errors=True)
+    return results
+
+
+def dist_batch(n: int, lens) -> dict:
+    """The global batch of the data-parallel phases, in host memory: n
+    voiced 1.5 s crops and their valid lengths `lens`."""
+    return {"audio": torch.from_numpy(voiced(np.random.RandomState(51), n, DIST_LENGTH)),
+            "audio_lens": torch.tensor(lens)}
+
+
+def _grads_by_step(optimizer: ScaledAdam, into: dict, key: str):
+    """Wrap `optimizer.step` to keep the gradients it applies (summed over
+    the ranks by then) under `into[key]`, by parameter name, on the CPU."""
+    step = optimizer.step
+
+    def keep(lr):
+        into[key] = {n: p.grad.detach().double().cpu() for g in optimizer.groups
+                     for n, p in zip(g.names, g.params)}
+        step(lr)
+
+    optimizer.step = keep
+
+
+def dist_steps(spec: dict) -> dict:
+    """One FM step of full mel_24k_base, then (unless `spec["fm_only"]`) a
+    4-step GAN D step and G step with the full discriminators, on this rank's
+    rows of the global batch of 16 x 1.5 s (all of it in one process); the
+    draws from step generators for the global batch. Returns the global
+    losses, the summed gradients each step applied (rank 0 and one
+    process), each step's launches of both kernels and the peak memory so
+    far; raises on every rank unless the ranks' parameters are bitwise equal
+    after each step. With `spec["floors"]` (one process) it also returns
+    each GAN step's gradient computed as two halves of the batch."""
+    shard = dist.shard()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = {k: shard.rows(v).to(dev) for k, v in dist_batch(DIST_BATCH, DIST_LENS).items()}
+    grads = {}
+    out = {"backend": (torch.distributed.get_backend() if torch.distributed.is_initialized()
+                       else "none"), "device": str(dev)}
+
+    cfg = get_generator_config("mel_24k_base")
+    model = init_weights(build_generator(cfg), torch.Generator().manual_seed(0)).to(dev)
+    mel = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100).to(dev)
+    opt = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
+    dist.assert_replicas_equal(list(model.parameters()))
+    _grads_by_step(opt, grads, "fm")
+    fused.launches = fused.adjoint_launches = 0
+    m = fm_train_step(model, opt, mel, batch, 1e-3, step_generator(0, 0, dev))
+    torch.cuda.synchronize()
+    out["fm"] = {"loss": float(m["loss"]), "launches": (fused.launches, fused.adjoint_launches)}
+    dist.assert_replicas_equal(list(model.parameters()))  # raises on every rank if not
+    del model, opt, m
+    if spec.get("fm_only"):
+        out["grads"] = grads if dist.is_main() else None
+        return out
+
+    gen, disc, mel, recon = gan_models(dev)
+    opt_g = ScaledAdam(gen.named_parameters(), clipping_scale=2.0)
+    opt_d = ScaledAdam(disc.named_parameters(), clipping_scale=2.0)
+    d_step, g_step, _ = make_gan_steps(gen, disc, mel, recon, opt_g, opt_d, lambda b: 1e-4,
+                                       lambda b: 1e-3, n_timesteps=GAN_STEPS)
+    _grads_by_step(opt_d, grads, "d")
+    _grads_by_step(opt_g, grads, "g")
+    n_frames = DIST_LENGTH // 256 + 1
+    d_draws = gen.draw_rollout(DIST_BATCH // shard.count, n_frames, GAN_STEPS,
+                               step_generator(0, 1, dev), train=False, shard=shard)
+    g_draws = gen.draw_rollout(DIST_BATCH // shard.count, n_frames, GAN_STEPS,
+                               step_generator(0, 2, dev), train=True, shard=shard)
+    loss_fns = dict(zip("dg", make_gan_loss_fns(gen, disc, mel, recon, n_timesteps=GAN_STEPS)))
+    for side, step, draws, own in (("d", d_step, d_draws, opt_d), ("g", g_step, g_draws, opt_g)):
+        if spec.get("floors"):
+            # the floor: this step's gradient computed as the ranks compute
+            # it, as two halves of the batch whose gradients are summed
+            for r in range(DIST_WORLD):
+                part = Shard(r, DIST_WORLD)
+                half = {k: part.rows(v) for k, v in batch.items()}
+                loss, _ = loss_fns[side](half, RolloutDraws(part.rows(draws.x0), draws.gates))
+                (loss / DIST_WORLD).backward(inputs=[p for g in own.groups for p in g.params])
+            out[f"split_{side}"] = {n: p.grad.detach().double().cpu() for g in own.groups
+                                    for n, p in zip(g.names, g.params)}
+            own.zero_grad()
+        fused.launches = fused.adjoint_launches = 0
+        m = step(batch, draws)
+        torch.cuda.synchronize()
+        out[side] = {"loss": float(m["loss_d" if side == "d" else "loss_g"]),
+                     "launches": (fused.launches, fused.adjoint_launches),
+                     "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+        dist.assert_replicas_equal([*gen.parameters(), *disc.parameters()])
+    out["grads"] = grads if dist.is_main() else None
+    return out
+
+
+def _norm(tensors) -> float:
+    return math.sqrt(sum(t.norm().item() ** 2 for t in tensors))
+
+
+def compare_steps(name: str, ours: dict, ref: dict, floors=None) -> dict:
+    """A step of the ranks against one process, with 15c's limits: the loss
+    within LOSS_TOL; each tensor's gradient within GRAD_TENSOR_TOL of its
+    norm plus four times its floor, the whole within GRAD_TOL of the norm
+    plus twice the floors' (no floors: 0). The report's "ok" says whether
+    it holds."""
+    names = sorted(ref["grads"][name])
+    a = [ours["grads"][name][k] for k in names]
+    b = [ref["grads"][name][k] for k in names]
+    scales = [g.norm().item() for g in b]
+    floors = [floors[k] for k in names] if floors else [0.0] * len(names)
+    err = [(x - y).norm().item() for x, y in zip(a, b)]
+    ratio = [e / (GRAD_TENSOR_TOL * s + 4 * f + 1e-300) for e, s, f in zip(err, scales, floors)]
+    worst = max(range(len(names)), key=lambda i: ratio[i])
+    total, total_scale, total_floor = (_norm([x - y for x, y in zip(a, b)]),
+                                       math.hypot(*scales), math.hypot(*floors))
+    loss_err = abs(ours[name]["loss"] - ref[name]["loss"]) / abs(ref[name]["loss"])
+    return {"ok": bool(loss_err <= LOSS_TOL and ratio[worst] <= 1.0
+                       and total <= GRAD_TOL * total_scale + 2 * total_floor
+                       and all(torch.isfinite(x).all() for x in a)),
+            "loss_ranks": ours[name]["loss"], "loss_one": ref[name]["loss"],
+            "loss_rel_err": loss_err, "grad_rel_err_all": total / total_scale,
+            "floor_all": total_floor / total_scale, "worst_tensor": names[worst],
+            "its_rel_err": err[worst] / scales[worst], "its_floor": floors[worst] / scales[worst],
+            "worst_err_over_limit": ratio[worst],
+            "median_tensor_rel_err": statistics.median(e / (s + 1e-300) for e, s in zip(err, scales)),
+            "tensors": len(a), "launches_per_rank": ours[name]["launches"],
+            "launches_one": ref[name]["launches"]}
+
+
+def data_parallel_steps(card: str) -> dict:
+    """Phases 16a and 16b: the FM step, then the 4-step D and G steps, as 2
+    ranks of 8 against one process of 16, with the same weights, batch and
+    draws. One rank per card over NCCL where there are 2 cards; else both
+    ranks on card 0 over gloo (every rank on the named card), and the FM
+    step once more in a one-rank NCCL group, so that NCCL's init and
+    all-reduce run on the card. Returns the per-rank launches."""
+    per_card = torch.cuda.device_count() >= DIST_WORLD
+    ref = dist_steps({"floors": True})
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    ranks = spawn_ranks(DIST_WORLD, "dist_steps", {"group": "port",
+                                                   "device": "cuda" if per_card else "cuda:0"},
+                        ROOT / "dist_steps")
+    wall_s = time.perf_counter() - start
+    backend = ranks[0]["backend"]
+    if backend != ("nccl" if per_card else "gloo") or any(not r["device"].startswith("cuda")
+                                                           for r in ranks):
+        raise AssertionError(f"ranks ran on {[(r['backend'], r['device']) for r in ranks]}")
+    # 15c's limits with this phase's floor: how far one process's gradient
+    # moves when it computes the global batch as the ranks do, as two halves
+    # (batch 8 runs other kernels, and the hinge's halves cancel in places)
+    floors = {side: {k: (ref[f"split_{side}"][k] - g).norm().item()
+                     for k, g in ref["grads"][side].items()} for side in ("d", "g")}
+    reports = {side: compare_steps(side, ranks[0], ref, floors.get(side))
+               for side in ("fm", "d", "g")}
+    expected = {"fm": (3, 3), "d": (3 * GAN_STEPS, 0), "g": (3 * GAN_STEPS, 3 * GAN_STEPS)}
+    print("data-parallel steps, 2 ranks against one process " + json.dumps({
+        "config": "mel_24k_base", "global_batch": DIST_BATCH, "per_rank": DIST_BATCH // DIST_WORLD,
+        "seconds_per_item": DIST_LENGTH / 24000, "valid_lens": DIST_LENS, "n_timesteps": GAN_STEPS,
+        "backend": backend, "devices": [r["device"] for r in ranks],
+        "ranks_bitwise_equal_after_each_step": True,
+        "floor": "one process's gradient as two halves of the batch, summed",
+        "peak_gb_per_rank": {s: [r[s]["peak_gb"] for r in ranks] for s in ("d", "g")},
+        "spawned_run_wall_s": wall_s, **reports, "card": card}))
+    for side, want in expected.items():
+        got = [r[side]["launches"] for r in ranks]
+        if got != [want] * DIST_WORLD or any(r[side]["loss"] != ranks[0][side]["loss"] for r in ranks):
+            raise AssertionError(f"{side} step: per-rank launches {got} (want {want}) or "
+                                 "losses differ between the ranks")
+        if not reports[side]["ok"]:
+            raise AssertionError(f"{side} step: the ranks disagree with one process")
+    if not per_card:
+        nccl = spawn_ranks(1, "dist_steps", {"group": "nccl1", "fm_only": True},
+                           ROOT / "dist_nccl")[0]
+        report = compare_steps("fm", nccl, ref)
+        print("FM step in a one-rank NCCL group against one process " + json.dumps(
+            {"backend": nccl["backend"], "device": nccl["device"], **report, "card": card}))
+        if nccl["backend"] != "nccl" or nccl["fm"]["launches"] != (3, 3) or not report["ok"]:
+            raise AssertionError(f"the one-rank NCCL group ran {nccl['backend']}, {report}")
+    return {side: ranks[0][side]["launches"] for side in expected}
+
+
+def dist_trainer_rank(spec: dict) -> dict:
+    """`bin/pretrain.py` in this rank (it joins the group from torchrun's
+    environment), with every checkpoint write and every all-reduce's span
+    on the card recorded, step by step, and the last step's device time by
+    family (torch.profiler)."""
+    writes, spans, backends, marks, last = [], [], set(), [], {}
+    save, all_reduce, step = ckpt.save_checkpoint, torch.distributed.all_reduce, pretrain.fm_train_step
+
+    def recording(filename, *args, **kwargs):
+        writes.append(Path(filename).name)
+        return save(filename, *args, **kwargs)
+
+    def timed(tensor, *args, **kwargs):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        work = all_reduce(tensor, *args, **kwargs)
+        stop.record()
+        spans.append((tensor.numel(), start, stop))
+        backends.add(torch.distributed.get_backend())
+        return work
+
+    def marked(*args, **kwargs):
+        marks.append(len(spans))
+        if len(marks) < spec["steps"]:
+            return step(*args, **kwargs)
+        last["families"] = device_families(lambda: last.update(out=step(*args, **kwargs)))[0]
+        return last["out"]
+
+    ckpt.save_checkpoint, torch.distributed.all_reduce = recording, timed
+    pretrain.fm_train_step = marked
+    fused.launches = fused.adjoint_launches = 0
+    history = pretrain.run(pretrain.get_parser().parse_args(spec["argv"]))
+    torch.cuda.synchronize()
+    ms = [(n, a.elapsed_time(b)) for n, a, b in spans]
+    per_step = [ms[i:j] for i, j in zip(marks, marks[1:] + [len(ms)])]
+    return {"writes": writes, "history": history,
+            "launches": (fused.launches, fused.adjoint_launches),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "backend": ",".join(sorted(backends)),
+            "all_reduce_by_step": [{"gradient_buckets_ms": sum(t for n, t in s if n >= 1 << 20),
+                                    "small_ms": sum(t for n, t in s if n < 1 << 20),
+                                    "calls": len(s)} for s in per_step],
+            "last_step_device_ms_by_family": last["families"]}
+
+
+def data_parallel_trainer(card: str, root: Path) -> dict:
+    """Phase 16c: `bin/pretrain.py` as 2 processes (global batch 16, 8 per
+    rank, 1 epoch of 96 recordings: 6 steps), as torchrun would start them;
+    returns the per-rank launches."""
+    recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:96]
+    manifest = root / "dist_train.jsonl.gz"
+    write_recording_manifest(recs, manifest)
+    exp = root / "exp_dist"
+    device = "cuda" if torch.cuda.device_count() >= DIST_WORLD else "cuda:0"
+    argv = ["--model-name", "mel_24k_base", "--batch-size", str(DIST_BATCH), "--duration", "1.5",
+            "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "3",
+            "--keep-last-k", "1", "--average-period", "2", "--log-interval", "2",
+            "--valid-interval", "0", "--device", device, "--exp-dir", str(exp),
+            "--train-recordings", str(manifest)]
+    steps = len(recs) // DIST_BATCH
+    start = time.perf_counter()
+    ranks = spawn_ranks(DIST_WORLD, "dist_trainer_rank",
+                        {"group": "trainer", "argv": argv, "steps": steps},
+                        root / "dist_trainer_out")
+    wall_s = time.perf_counter() - start
+    # medians over the steps after the first two, as the trainer phase's;
+    # the last step ran under the profiler and is left out of the times
+    ms = [statistics.median([h["ms"] for h in r["history"][2:-1]]) for r in ranks]
+    per_step = [{k: statistics.median(s[k] for s in r["all_reduce_by_step"][2:-1])
+                 for k in ("gradient_buckets_ms", "small_ms", "calls")} for r in ranks]
+    # busy: the rank's own work; NCCL's kernels also count their waits
+    device_ms = [sum(v for k, v in r["last_step_device_ms_by_family"].items()
+                     if k != NCCL_FAMILY) for r in ranks]
+    files = sorted(p.name for p in exp.rglob("*") if p.is_file())
+    report = {"config": "mel_24k_base", "processes": DIST_WORLD, "backend": ranks[0]["backend"],
+              "device": device, "global_batch": DIST_BATCH, "seconds_per_item": 1.5,
+              "steps": steps, "loss_curve": [h["loss"] for h in ranks[0]["history"]],
+              "step_ms_median_per_rank": ms,
+              "audio_s_per_wall_s": DIST_BATCH * 1.5 / max(ms) * 1e3,
+              "peak_memory_gb_per_rank": [r["peak_gb"] for r in ranks],
+              "all_reduce_per_step_per_rank": per_step,
+              "device_ms_per_step_per_rank": device_ms,
+              "device_busy_share_per_rank": [d / m for d, m in zip(device_ms, ms)],
+              "device_ms_by_family_per_rank": [r["last_step_device_ms_by_family"] for r in ranks],
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "writes_per_rank": [r["writes"] for r in ranks], "files": files,
+              "run_wall_s": wall_s, "card": card}
+    print("data-parallel trainer " + json.dumps(report))
+    logs = [f for f in files if f.startswith("log-train")]
+    if ([len(r["history"]) for r in ranks] != [steps] * DIST_WORLD
+            or any([h["loss"] for h in r["history"]] != report["loss_curve"] for r in ranks)
+            or not all(math.isfinite(x) for x in report["loss_curve"])
+            or [r["launches"] for r in ranks] != [(3 * steps, 3 * steps)] * DIST_WORLD
+            or ranks[0]["writes"] != ["epoch-0.pt", "checkpoint-3.pt", "checkpoint-6.pt",
+                                      "epoch-1.pt"]
+            or any(r["writes"] for r in ranks[1:]) or len(logs) != 1):
+        raise AssertionError(f"the data-parallel trainer: {report}")
+    shutil.rmtree(exp, ignore_errors=True)
+    return {"steps": steps, "launches": ranks[0]["launches"]}
+
+
+# ------------------------------------------------------------- resume (17)
+
+
+def _rel_dist(a: dict, b: dict) -> float:
+    return _norm([a[k].double() - b[k].double() for k in b]) / _norm([v.double() for v in b.values()])
+
+
+def resume_runs(root: Path, module, name: str, argv: list, resume_at: int) -> dict:
+    """`module` run straight twice (the card's run-to-run spread) and once
+    resumed with --resume-from checkpoint-<resume_at>.pt of the first;
+    returns the three runs' histories and final "model" entries, and the
+    checkpoint resumed from. Each run's directory (several GB of
+    checkpoints) is deleted once read."""
+    out = {}
+    start = root / f"resume_{name}_from.pt"
+    for run in ("straight", "again", "resumed"):
+        exp = root / f"resume_{name}_{run}"
+        shutil.rmtree(exp, ignore_errors=True)
+        extra = ["--resume-from", str(start)] if run == "resumed" else []
+        history = module.run(module.get_parser().parse_args(argv + ["--exp-dir", str(exp), *extra]))
+        out[run] = {"history": history, "model": ckpt.load_checkpoint(exp / "epoch-1.pt")["model"]}
+        if run == "straight":
+            shutil.copy(exp / f"checkpoint-{resume_at}.pt", start)
+        shutil.rmtree(exp, ignore_errors=True)
+    out["from"] = {k: v for k, v in ckpt.load_checkpoint(start).items()
+                   if k in ("sampler", "train_disc", "batch_idx_train")}
+    start.unlink()
+    return out
+
+
+def resume_phase(card: str, root: Path, averaged: Path) -> None:
+    """Phase 17: bin/pretrain.py for 4 steps (1 epoch of 64 recordings at
+    batch 16), and bin/finetune.py at 4 Euler steps for 4 batches (D, D, G,
+    D) with --freeze-modules cond_encoder, each resumed from its mid-epoch
+    checkpoint-2.pt, against the straight run: within 4 times the card's
+    run-to-run spread of two straight runs (the card's float sums are not
+    bitwise repeatable). The frozen tensors stay bitwise unchanged."""
+    recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:64]
+    manifest = root / "resume_train.jsonl.gz"
+    write_recording_manifest(recs, manifest)
+    common = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
+              "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "2",
+              "--keep-last-k", "2", "--average-period", "2", "--log-interval", "2",
+              "--valid-interval", "0", "--device", "cuda", "--train-recordings", str(manifest)]
+    runs = {"pretrain": resume_runs(root, pretrain, "fm", common, 2),
+            "finetune": resume_runs(root, finetune, "gan", common + [
+                "--n-timesteps", str(GAN_STEPS), "--gen-start-batch-idx", "2",
+                "--generator-model-path", str(averaged), "--freeze-modules", "cond_encoder"], 2)}
+    report = {}
+    for name, r in runs.items():
+        sides = ["generator", "discriminator"] if name == "finetune" else [None]
+        for side in sides:
+            pick = (lambda m: m[side]) if side else (lambda m: m)
+            spread = _rel_dist(pick(r["again"]["model"]), pick(r["straight"]["model"]))
+            resumed = _rel_dist(pick(r["resumed"]["model"]), pick(r["straight"]["model"]))
+            key = name + (f"_{side}" if side else "")
+            report[key] = {"resumed_vs_straight": resumed, "straight_vs_straight": spread,
+                           "limit": 4 * spread}
+            if not resumed <= 4 * spread:
+                raise AssertionError(f"{key}: the resumed run lies {resumed} from the straight "
+                                     f"run, beyond 4 x the run-to-run spread {spread}")
+        tail = [(h.get("side"), h["dl"]) for h in r["straight"]["history"][2:]]
+        if [(h.get("side"), h["dl"]) for h in r["resumed"]["history"]] != tail or \
+                [h["batch_idx_train"] for h in r["resumed"]["history"]] != [3, 4]:
+            raise AssertionError(f"{name}: the resumed run did not continue the straight one")
+    ft = runs["finetune"]
+    init = torch.load(averaged, weights_only=True)
+    frozen = [k for k in init if k.startswith("cond_encoder.")]
+    unchanged = all(torch.equal(r["model"]["generator"][k], init[k]) for r in
+                    (ft["straight"], ft["again"], ft["resumed"]) for k in frozen)
+    moved = sum(not torch.equal(ft["straight"]["model"]["generator"][k], v)
+                for k, v in init.items() if k not in frozen) / (len(init) - len(frozen))
+    sides = "".join(h["side"] for h in ft["straight"]["history"])
+    print("resume " + json.dumps({
+        "config": "mel_24k_base", "batch": 16, "steps": 4, "resumed_from": "checkpoint-2.pt",
+        "sampler": ft["from"]["sampler"]["dl_states"], "train_disc_restored": ft["from"]["train_disc"],
+        "gan_sides": sides, **report, "frozen_tensors": len(frozen),
+        "frozen_bitwise_unchanged": unchanged, "other_generator_tensors_moved_share": moved,
+        "card": card}))
+    if not (unchanged and frozen and moved > 0.9 and sides == "DDGD"
+            and ft["from"]["train_disc"] is False):
+        raise AssertionError("--freeze-modules cond_encoder or the D/G alternation failed")
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -1377,6 +1829,10 @@ def main() -> int:
     for shape in GAN_SHAPES:
         print("istft GAN shape " + json.dumps(check_istft_shape(*shape, real_edges=True, timed=False)))
         print("adjoint GAN shape " + json.dumps(check_adjoint_shape(*shape, timed=False)))
+    for shape in RANK_SHAPES:
+        print("istft per-rank shape " + json.dumps(check_istft_shape(*shape, real_edges=True,
+                                                                     timed=False)))
+        print("adjoint per-rank shape " + json.dumps(check_adjoint_shape(*shape, timed=False)))
 
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
@@ -1405,7 +1861,15 @@ def main() -> int:
     gan = gan_finetune(card, root, averaged)
     remat_launches = gan_step_profiles(card, averaged, gan["d_ms"], gan["g_ms"])
     gan_cli_launches = gan_clis(card, root, gan["exp"])
+    shutil.rmtree(gan["exp"], ignore_errors=True)
+    dp = data_parallel_steps(card)
+    dp_train = data_parallel_trainer(card, root)
+    resume_phase(card, root, averaged)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
+    dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
+                "gan_g_step_2_ranks_per_rank": 2,
+                f"pretrain_2_ranks_{dp_train['steps']}_steps_per_rank": 3}
+    dp_launches = [dp["fm"], dp["d"], dp["g"], dp_train["launches"]]
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
     train_step = adjoint_shapes[-3:]  # the three branches of one training step
@@ -1429,7 +1893,8 @@ def main() -> int:
             "gan_finetune_validation": gan["launches"]["validation"],
             "gan_g_step_plain": remat_launches["plain"][0],
             "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
-            "cli_infer_load_gan_4_steps": gan_cli_launches},
+            "cli_infer_load_gan_4_steps": gan_cli_launches,
+            **{k: dp_launches[i][0] for k, i in dp_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),
         "ms": sum(s["ms"] for s in step),
@@ -1457,7 +1922,8 @@ def main() -> int:
                              "gan_finetune_g_steps": gan["launches"]["g_steps_adjoint"],
                              "gan_finetune_validation": 0,
                              "gan_g_step_plain": remat_launches["plain"][1],
-                             "gan_g_step_remat": remat_launches["remat"][1]},
+                             "gan_g_step_remat": remat_launches["remat"][1],
+                             **{k: dp_launches[i][1] for k, i in dp_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes),
         "ms": sum(s["ms"] for s in train_step),

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GAN fine-tuning (stage 2) of the port, on one card.
+"""GAN fine-tuning (stage 2) of the port, on one card or as N processes of
+data parallelism.
 
 The counterpart of `flow2gan_tpu/bin/finetune.py`, with its flag names and
 defaults for what is ported, and `--device` (default cuda; the tests pass
@@ -21,8 +22,17 @@ Checkpoints: epoch-0.pt (the initial state), epoch-N.pt at the end of each
 epoch and checkpoint-<batch>.pt every --save-every-n batches (the last
 --keep-last-k kept). Each holds both models and both optimizers, the
 generator's float64 running average and the D/G alternation state, so
---start-epoch resumes exactly; `bin/save_averaged_model.py --load-gan true`
-exports the generator.
+--start-epoch resumes exactly; a batch checkpoint also holds the sampler's
+position, from which --resume-from continues mid-epoch.
+`bin/save_averaged_model.py --load-gan true` exports the generator.
+`--freeze-modules` and `--lr-scale-rules` apply to the generator only.
+
+Data parallelism as in `bin/pretrain.py`: `--batch-size` is global, each
+rank rolls out and judges its rows of it, and each step sums its own side's
+gradients over the ranks:
+
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m flow2gan_tpu_torch.bin.finetune --batch-size 64 ...
 
 A flag that is not ported yet raises and names the item of ROADMAP.md that
 ports it; it is never ignored.
@@ -32,50 +42,47 @@ from __future__ import annotations
 
 import argparse
 import logging
-import random
 import time
 from pathlib import Path
 from typing import List
 
-import numpy as np
 import torch
 
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.bin.pretrain import (
     OBSERVABILITY,
-    SHARED_OPTIONS,
     TOKEN_FAMILY,
-    _manifests,
     _to_device,
+    build_loaders,
     check_ported,
+    epoch_sampler,
+    lr_scales,
+    resume_checkpoint,
+    start_run,
 )
 from flow2gan_tpu_torch.compat.from_reference import load_weights
-from flow2gan_tpu_torch.data.dataset import build_data_loader
 from flow2gan_tpu_torch.models import build_generator, get_gan_config, get_generator_config
 from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
 from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import num_frames
+from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.gan_step import GANLossScales, make_gan_steps
 from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
 from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr
 from flow2gan_tpu_torch.training.train_step import step_generator
-from flow2gan_tpu_torch.utils import MetricsTracker, disable_tf32, setup_logger, str2bool
+from flow2gan_tpu_torch.utils import MetricsTracker, str2bool
 
 # flags of the JAX trainer that the port does not run yet: (attribute, its
 # default, the ROADMAP.md item that ports it)
 _LATER = (
     ("tokenizer", None, TOKEN_FAMILY),
-    ("train_dls_weights", None, SHARED_OPTIONS),
     ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("print_diagnostics", False, OBSERVABILITY),
     ("inf_check", False, OBSERVABILITY),
     ("tensorboard", False, OBSERVABILITY),
     ("profile_dir", None, OBSERVABILITY),
-    ("freeze_modules", None, SHARED_OPTIONS),
-    ("lr_scale_rules", None, SHARED_OPTIONS),
-    ("resume_from", None, SHARED_OPTIONS),
 )
 _G_METRICS = ("loss_g", "gen_loss_mp", "gen_loss_mr", "feat_map_loss_mp", "feat_map_loss_mr",
               "mel_recon_loss")
@@ -110,7 +117,8 @@ def get_parser():
     parser.add_argument("--max-load-times", type=int, default=3)
     parser.add_argument("--train-recordings", type=str, required=False,
                         help="CSV of recordings.jsonl[.gz] manifests")
-    parser.add_argument("--train-dls-weights", type=str, default=None, help="not ported yet")
+    parser.add_argument("--train-dls-weights", type=str, default=None,
+                        help="CSV of sampling weights, one per --train-recordings manifest")
     parser.add_argument("--valid-recordings", type=str, required=False)
     parser.add_argument("--test-recordings", type=str, required=False, help="not ported yet")
     parser.add_argument("--num-workers", type=int, default=8)
@@ -135,31 +143,36 @@ def get_parser():
     parser.add_argument("--profile-dir", type=str, default=None, help="not ported yet")
     parser.add_argument("--remat-rollout", type=str2bool, default=False,
                         help="Recompute each Euler step of the G step's rollout in backward")
-    parser.add_argument("--freeze-modules", type=str, default=None, help="not ported yet")
-    parser.add_argument("--lr-scale-rules", type=str, default=None, help="not ported yet")
-    parser.add_argument("--resume-from", type=str, default=None, help="not ported yet")
+    parser.add_argument("--freeze-modules", type=str, default=None,
+                        help="CSV of generator parameter-path prefixes to freeze (lr 0)")
+    parser.add_argument("--lr-scale-rules", type=str, default=None,
+                        help="CSV of prefix=scale lr multipliers of the generator's parameters")
+    parser.add_argument("--resume-from", type=str, default=None,
+                        help="Continue mid-epoch from a checkpoint-<batch>.pt: both models and "
+                        "optimizers, the running average, the D/G alternation and the sampler")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (the card), or cpu for the tests")
+                        help="cuda (card LOCAL_RANK per rank), cuda:<i> (every rank on card i), "
+                        "or cpu for the tests")
     return parser
 
 
 def run(args) -> List[dict]:
-    """Fine-tune; returns one record per batch: batch index, side ("D" or
-    "G"), loss, lr, clip_scale and the step's wall ms (to the loss's arrival
-    on the host)."""
+    """Fine-tune; returns one record per batch: batch index, the training
+    loader it drew from, side ("D" or "G"), loss, lr, clip_scale and the
+    step's wall ms (to the loss's arrival on the host)."""
     check_ported(args, _LATER)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
-        disable_tf32()
-    exp_dir = Path(args.exp_dir)
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    setup_logger(f"{exp_dir}/log/log-train")
-    logging.info(f"GAN fine-tuning started: {vars(args)}")
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    owns_group = not torch.distributed.is_initialized()
+    device = start_run(args, "GAN fine-tuning")
+    try:
+        return _finetune(args, device)
+    finally:
+        if owns_group:
+            dist.destroy()
 
+
+def _finetune(args, device: torch.device) -> List[dict]:
+    exp_dir = Path(args.exp_dir)
+    main = dist.is_main()
     cfg = get_generator_config(args.model_name)
     cfg["branch_dropout"] = 0.0  # off in the GAN stage, as in the reference
     gan_cfg = get_gan_config(args.gan_name)
@@ -174,7 +187,8 @@ def run(args) -> List[dict]:
                                hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
     mel_recon_fns = make_mel_recon_fns(cfg.sampling_rate, gan_cfg.mel_recon_n_ffts,
                                        gan_cfg.mel_recon_n_mels).to(device)
-    optimizer_g = ScaledAdam(generator.named_parameters(), clipping_scale=2.0)
+    optimizer_g = ScaledAdam(generator.named_parameters(), clipping_scale=2.0,
+                             lr_scales=lr_scales(args, generator.named_parameters()))
     optimizer_d = ScaledAdam(discriminators.named_parameters(), clipping_scale=2.0)
     scales = GANLossScales(
         disc_mp=args.disc_loss_mp_scale, disc_mr=args.disc_loss_mr_scale,
@@ -193,34 +207,29 @@ def run(args) -> List[dict]:
     logging.info(f"Parameters: generator {sum(p.numel() for p in generator.parameters())}, "
                  f"discriminators {sum(p.numel() for p in discriminators.parameters())}")
 
-    model_avg = {k: v.detach().double().clone() for k, v in generator.state_dict().items()}
+    model_avg = ({k: v.detach().double().clone() for k, v in generator.state_dict().items()}
+                 if main else None)
     batch_idx_train, train_disc = 0, True
-    if args.start_epoch > 1:
-        resume = exp_dir / f"epoch-{args.start_epoch - 1}.pt"
-        if not resume.exists():
-            raise FileNotFoundError(f"--start-epoch {args.start_epoch} resumes from {resume}, "
-                                    "which does not exist")
-        logging.info(f"Resuming from {resume}")
-        loaded = ckpt.load_checkpoint(resume)
+    resume_sampler = None
+    loaded = resume_checkpoint(args, exp_dir)
+    if loaded is not None:
         generator.load_state_dict(loaded["model"]["generator"])
         discriminators.load_state_dict(loaded["model"]["discriminator"])
         optimizer_g.load_state_dict(loaded["optimizer"]["g"])
         optimizer_d.load_state_dict(loaded["optimizer"]["d"])
-        model_avg = {k: v.to(device) for k, v in loaded["model_avg"].items()}
+        if main:
+            model_avg = {k: v.to(device) for k, v in loaded["model_avg"].items()}
         batch_idx_train = int(loaded["batch_idx_train"])
         train_disc = bool(loaded["train_disc"])
+        if args.resume_from and loaded.get("sampler") is not None:
+            resume_sampler = loaded["sampler"]
+            args.start_epoch = int(resume_sampler["epoch"])
+            logging.info(f"Sampler restored at epoch {args.start_epoch}")
+        del loaded
+    dist.assert_replicas_equal([*generator.parameters(), *discriminators.parameters()])
+    train_dls, valid_dls, dls_weights = build_loaders(args, cfg.sampling_rate, 16)
 
-    loader_kw = dict(sampling_rate=cfg.sampling_rate, num_workers=args.num_workers,
-                     duration=args.duration)
-    train_dls = [build_data_loader(recs, batch_size=args.batch_size, train=True,
-                                   max_load_times=args.max_load_times, seed=args.seed,
-                                   drop_last=True, **loader_kw)
-                 for recs in _manifests(args.train_recordings)]
-    valid_dls = [build_data_loader(recs, batch_size=min(args.batch_size, 16), train=False,
-                                   **loader_kw)
-                 for recs in (_manifests(args.valid_recordings) if args.valid_recordings else [])]
-
-    def save(filename, **extra):
+    def save(filename, sampler_state=None, **extra):
         ckpt.save_checkpoint(
             filename,
             model={"generator": generator.state_dict(),
@@ -229,28 +238,35 @@ def run(args) -> List[dict]:
             optimizer_state={"g": optimizer_g.state_dict(), "d": optimizer_d.state_dict()},
             train_params={"batch_idx_train": batch_idx_train, "train_disc": train_disc,
                           "model_name": args.model_name, "n_timesteps": args.n_timesteps,
-                          **extra})
+                          **extra},
+            sampler_state=sampler_state)
+
+    def save_bad_model(suffix):
+        if main:
+            save(exp_dir / f"bad-model{suffix}.pt")
 
     epoch0 = exp_dir / "epoch-0.pt"
-    if args.start_epoch == 1 and not epoch0.exists():
+    if main and args.start_epoch == 1 and not epoch0.exists():
         # so that a window (epoch-0, epoch-N] is defined for every N
         save(epoch0)
 
+    shard = dist.shard()
+
     def draws(audio, train: bool, gen: torch.Generator):
         n_frames = num_frames(audio.shape[-1], cfg.mel_hop_length)
-        return generator.draw_rollout(audio.shape[0], n_frames, args.n_timesteps, gen, train)
+        return generator.draw_rollout(audio.shape[0], n_frames, args.n_timesteps, gen, train,
+                                      shard=shard)
 
     guard = NonfiniteLossGuard()
     history = []
     for epoch in range(args.start_epoch, args.num_epochs + 1):
-        for dl in train_dls:
-            dl.set_epoch(epoch)
-        rng_py = random.Random(args.seed + epoch)
+        rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
+        resume_sampler = None
         iters = [iter(dl) for dl in train_dls]
         tot_g, tot_d = MetricsTracker(), MetricsTracker()
         batch_idx = 0
         while True:
-            dl_idx = rng_py.choices(range(len(iters)), k=1)[0]
+            dl_idx = rng_py.choices(range(len(iters)), weights=dls_weights, k=1)[0]
             try:
                 batch = next(iters[dl_idx])
             except StopIteration:
@@ -274,8 +290,8 @@ def run(args) -> List[dict]:
                 train_disc = True
             values = torch.stack([metrics[k] for k in keys]).tolist()
             loss_val, clip_val = values[0], float(metrics["clip_scale"])
-            history.append({"batch_idx_train": batch_idx_train, "side": side, "loss": loss_val,
-                            "lr": lr, "clip_scale": clip_val,
+            history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "side": side,
+                            "loss": loss_val, "lr": lr, "clip_scale": clip_val,
                             "ms": (time.perf_counter() - start) * 1e3})
             n = batch["audio"].shape[0]
             info = MetricsTracker()
@@ -286,14 +302,14 @@ def run(args) -> List[dict]:
                 tot_d = tot_d + info
             else:
                 tot_g = tot_g + info
-            guard.check(loss_val, clip_val, batch_idx_train,
-                        lambda suffix: save(exp_dir / f"bad-model{suffix}.pt"))
+            guard.check(loss_val, clip_val, batch_idx_train, save_bad_model)
 
-            if batch_idx_train % args.average_period == 0:
+            if main and batch_idx_train % args.average_period == 0:
                 model_avg = ckpt.update_averaged_model(model_avg, generator.state_dict(),
                                                        args.average_period, batch_idx_train)
-            if batch_idx_train % args.save_every_n == 0:
-                save(exp_dir / f"checkpoint-{batch_idx_train}.pt")
+            if main and batch_idx_train % args.save_every_n == 0:
+                save(exp_dir / f"checkpoint-{batch_idx_train}.pt",
+                     sampler_state=ckpt.sampler_state_snapshot(epoch, train_dls, rng_py))
                 ckpt.remove_checkpoints(exp_dir, topk=args.keep_last_k)
             if batch_idx_train % args.log_interval == 0:
                 logging.info(f"Epoch {epoch}, batch {batch_idx}, global {batch_idx_train}, "
@@ -310,12 +326,14 @@ def run(args) -> List[dict]:
                         valid["samples"] += n
                         for k in ("loss_g", "mel_recon_loss"):
                             valid[k] += float(m[k]) * n
+                valid.reduce(device)
                 logging.info(f"Epoch {epoch}, validation: {valid}")
                 if device.type == "cuda":
                     logging.info(f"Peak device memory "
                                  f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
 
-        save(exp_dir / f"epoch-{epoch}.pt")
+        if main:
+            save(exp_dir / f"epoch-{epoch}.pt")
     logging.info("Done!")
     return history
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Flow-matching pretraining (stage 1) of the port, on one card.
+"""Flow-matching pretraining (stage 1) of the port, on one card or as N
+processes of data parallelism.
 
 The counterpart of `flow2gan_tpu/bin/pretrain.py`, with its flag names and
 defaults for what is ported, and `--device` (default cuda; the tests pass
@@ -9,11 +10,25 @@ bfloat16 (`compute_dtype`); parameters, the iSTFT and the loss stay float32.
 Checkpoints: epoch-0.pt (the initial model), then
 epoch-N.pt at the end of each epoch and checkpoint-<batch>.pt every
 --save-every-n batches (the last --keep-last-k kept), each with the float64
-running average that `bin/save_averaged_model.py` averages over.
+running average that `bin/save_averaged_model.py` averages over. A batch
+checkpoint also holds the sampler's position: `--resume-from
+checkpoint-<batch>.pt` continues mid-epoch where it was written.
+`--freeze-modules` and `--lr-scale-rules` take parameter-path prefixes in
+the JAX package's syntax (`cond_encoder`, `estimators_0/blocks_0=0.1`);
+`--train-dls-weights` weights the choice among the training manifests.
 
     python -m flow2gan_tpu_torch.bin.pretrain --exp-dir exp/fm \
         --model-name mel_24k_base --train-recordings data/train.jsonl.gz \
         --valid-recordings data/valid.jsonl.gz --batch-size 64
+
+Data parallelism: one process per card, `--batch-size` global (each rank
+loads its 1/N, from its strided shard of the recordings; `--num-workers`
+per rank), the gradients summed over the ranks after backward
+(`parallel/dist.py`), so N ranks equal one process on the global batch.
+Only rank 0 writes checkpoints and logs.
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m flow2gan_tpu_torch.bin.pretrain --batch-size 256 ...
 
 A flag that is not ported yet raises and names the item of ROADMAP.md that
 ports it; it is never ignored.
@@ -23,11 +38,10 @@ from __future__ import annotations
 
 import argparse
 import logging
-import os
 import random
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,33 +50,33 @@ from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.data.dataset import build_data_loader, read_recording_manifest
 from flow2gan_tpu_torch.models import build_generator, get_generator_config
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
+from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
-from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr
+from flow2gan_tpu_torch.training.optim import (
+    ScaledAdam,
+    eden2_lr,
+    make_lr_scales,
+    parse_lr_scale_rules,
+)
 from flow2gan_tpu_torch.training.train_step import fm_eval_loss, fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import MetricsTracker, disable_tf32, setup_logger, str2bool
 
 # the ROADMAP.md items (queue 1, by title) that port what the trainers do not
 # run yet
-SHARED_OPTIONS = "ROADMAP.md, 'The trainers' shared options'"
 OBSERVABILITY = "ROADMAP.md, 'Observability'"
 TOKEN_FAMILY = "ROADMAP.md, 'The token family'"
-DDP = "ROADMAP.md, 'DDP'"
 
 # flags of the JAX trainer that the port does not run yet: (attribute, its
 # default, the ROADMAP.md item that ports it)
 _LATER = (
     ("tokenizer", None, TOKEN_FAMILY),
-    ("train_dls_weights", None, SHARED_OPTIONS),
     ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("save_infer_steps", "2,4,8", OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("print_diagnostics", False, OBSERVABILITY),
     ("inf_check", False, OBSERVABILITY),
     ("tensorboard", False, OBSERVABILITY),
     ("profile_dir", None, OBSERVABILITY),
-    ("freeze_modules", None, SHARED_OPTIONS),
-    ("lr_scale_rules", None, SHARED_OPTIONS),
-    ("resume_from", None, SHARED_OPTIONS),
 )
 
 
@@ -89,7 +103,8 @@ def get_parser():
     parser.add_argument("--max-load-times", type=int, default=3)
     parser.add_argument("--train-recordings", type=str, required=False,
                         help="CSV of recordings.jsonl[.gz] manifests")
-    parser.add_argument("--train-dls-weights", type=str, default=None, help="not ported yet")
+    parser.add_argument("--train-dls-weights", type=str, default=None,
+                        help="CSV of sampling weights, one per --train-recordings manifest")
     parser.add_argument("--valid-recordings", type=str, required=False)
     parser.add_argument("--test-recordings", type=str, default=None, help="not ported yet")
     parser.add_argument("--save-infer-steps", type=str, default="2,4,8", help="not ported yet")
@@ -107,11 +122,18 @@ def get_parser():
                         help="bf16 activations in the model compute path")
     parser.add_argument("--tensorboard", type=str2bool, default=False, help="not ported yet")
     parser.add_argument("--profile-dir", type=str, default=None, help="not ported yet")
-    parser.add_argument("--freeze-modules", type=str, default=None, help="not ported yet")
-    parser.add_argument("--lr-scale-rules", type=str, default=None, help="not ported yet")
-    parser.add_argument("--resume-from", type=str, default=None, help="not ported yet")
+    parser.add_argument("--freeze-modules", type=str, default=None,
+                        help="CSV of parameter-path prefixes to freeze (lr 0), e.g. "
+                        "'cond_encoder,estimators_0'")
+    parser.add_argument("--lr-scale-rules", type=str, default=None,
+                        help="CSV of prefix=scale lr multipliers, composed along the path, "
+                        "e.g. 'cond_encoder=0.5,estimators_0/blocks_0=0.1'")
+    parser.add_argument("--resume-from", type=str, default=None,
+                        help="Continue mid-epoch from a checkpoint-<batch>.pt: the model, "
+                        "optimizer, running average, batch count and sampler position")
     parser.add_argument("--device", type=str, default="cuda",
-                        help="cuda (the card), or cpu for the tests")
+                        help="cuda (card LOCAL_RANK per rank), cuda:<i> (every rank on card i), "
+                        "or cpu for the tests")
     return parser
 
 
@@ -122,8 +144,37 @@ def check_ported(args, later=_LATER) -> None:
         if getattr(args, attr) != default:
             flag = "--" + attr.replace("_", "-")
             raise NotImplementedError(f"{flag} is not ported yet: {item}")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(f"multi-process training is not ported yet: {DDP}")
+
+
+def local_batch_size(batch_size: int, world: int) -> int:
+    """Each rank's share of the global `--batch-size`."""
+    if batch_size % world:
+        raise ValueError(f"--batch-size {batch_size} is the global batch and must divide "
+                         f"by the world size {world}")
+    return batch_size // world
+
+
+def start_run(args, name: str) -> torch.device:
+    """The trainers' common start: check the global batch against the world
+    size, join the process group (a no-op in one process), turn TF32 off on
+    the card, set up the log (rank 0's file) and seed the host RNGs.
+    Returns this rank's device."""
+    local_batch_size(args.batch_size, dist.env_world_size())
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
+    device = dist.init_distributed(device)
+    if device.type == "cuda":
+        disable_tf32()
+    exp_dir = Path(args.exp_dir)
+    if dist.is_main():
+        exp_dir.mkdir(parents=True, exist_ok=True)
+    setup_logger(f"{exp_dir}/log/log-train", rank=dist.rank(), world_size=dist.world_size())
+    logging.info(dist.describe(device))
+    logging.info(f"{name} started: {vars(args)}")
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    return device
 
 
 def _manifests(csv: str):
@@ -133,27 +184,91 @@ def _manifests(csv: str):
     return [read_recording_manifest(path) for path in csv.split(",")]
 
 
+def build_loaders(args, sampling_rate: int, valid_batch_cap: int):
+    """This rank's training loaders (one per manifest, each its shard of
+    the recordings at the local batch), its validation loaders, and the
+    weights of the choice among the training loaders."""
+    local_batch = local_batch_size(args.batch_size, dist.world_size())
+    loader_kw = dict(sampling_rate=sampling_rate, num_workers=args.num_workers,
+                     duration=args.duration)
+    train_dls = [build_data_loader(recs, batch_size=local_batch, train=True,
+                                   max_load_times=args.max_load_times, seed=args.seed,
+                                   drop_last=True, **loader_kw)
+                 for recs in _manifests(args.train_recordings)]
+    valid_dls = [build_data_loader(recs, batch_size=min(local_batch, valid_batch_cap),
+                                   train=False, **loader_kw)
+                 for recs in (_manifests(args.valid_recordings) if args.valid_recordings else [])]
+    weights = [1.0] * len(train_dls)
+    if args.train_dls_weights:
+        weights = [float(w) for w in args.train_dls_weights.split(",")]
+        if len(weights) != len(train_dls):
+            raise ValueError(f"--train-dls-weights gives {len(weights)} weights for "
+                             f"{len(train_dls)} --train-recordings manifests")
+    return train_dls, valid_dls, weights
+
+
+def lr_scales(args, named_params) -> Optional[Dict[str, float]]:
+    """Each parameter's lr multiplier from --lr-scale-rules and
+    --freeze-modules, or None when both are empty."""
+    rules = parse_lr_scale_rules(args.lr_scale_rules, args.freeze_modules)
+    if not rules:
+        return None
+    scales = make_lr_scales(named_params, rules)
+    logging.info(f"lr scale rules {rules}: {sum(v == 0.0 for v in scales.values())} "
+                 f"parameter tensors frozen, {sum(v not in (0.0, 1.0) for v in scales.values())} "
+                 "scaled")
+    return scales
+
+
+def resume_checkpoint(args, exp_dir: Path) -> Optional[dict]:
+    """The checkpoint a run continues from: --resume-from, else
+    epoch-{start-epoch - 1}.pt when --start-epoch > 1, else None. Every rank
+    reads it."""
+    if args.resume_from:
+        logging.info(f"Mid-epoch resume from {args.resume_from}")
+        return ckpt.load_checkpoint(args.resume_from)
+    if args.start_epoch > 1:
+        resume = exp_dir / f"epoch-{args.start_epoch - 1}.pt"
+        if not resume.exists():
+            raise FileNotFoundError(f"--start-epoch {args.start_epoch} resumes from {resume}, "
+                                    "which does not exist")
+        logging.info(f"Resuming from {resume}")
+        return ckpt.load_checkpoint(resume)
+    return None
+
+
+def epoch_sampler(args, epoch: int, train_dls, resume_sampler: Optional[dict]) -> random.Random:
+    """Set the loaders up for `epoch`: at the position a resumed checkpoint
+    holds, else at the epoch's start; returns the loader-picking RNG."""
+    if resume_sampler is not None:
+        return ckpt.restore_sampler_state(resume_sampler, train_dls)[1]
+    for dl in train_dls:
+        dl.set_epoch(epoch)
+    return random.Random(args.seed + epoch)
+
+
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {"audio": torch.from_numpy(batch["audio"]).to(device),
             "audio_lens": torch.from_numpy(batch["audio_lens"]).to(device)}
 
 
 def run(args) -> List[dict]:
-    """Train; returns one record per step: batch index, loss, lr,
-    clip_scale and the step's wall ms (to the loss's arrival on the host)."""
+    """Train; returns one record per step: batch index, the training
+    loader it drew from, loss, lr, clip_scale and the step's wall ms (to the
+    loss's arrival on the host)."""
     check_ported(args)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
-        disable_tf32()
-    exp_dir = Path(args.exp_dir)
-    exp_dir.mkdir(parents=True, exist_ok=True)
-    setup_logger(f"{exp_dir}/log/log-train")
-    logging.info(f"Training started: {vars(args)}")
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    owns_group = not torch.distributed.is_initialized()
+    device = start_run(args, "Training")
+    try:
+        return _train(args, device)
+    finally:
+        if owns_group:
+            dist.destroy()
 
+
+def _train(args, device: torch.device) -> List[dict]:
+    exp_dir = Path(args.exp_dir)
+    main = dist.is_main()
     cfg = get_generator_config(args.model_name)
     if args.use_bf16:
         cfg["compute_dtype"] = "bfloat16"
@@ -161,54 +276,56 @@ def run(args) -> List[dict]:
     mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
                                hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
     logging.info(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
+    train_dls, valid_dls, dls_weights = build_loaders(args, cfg.sampling_rate, 32)
 
-    loader_kw = dict(sampling_rate=cfg.sampling_rate, num_workers=args.num_workers,
-                     duration=args.duration)
-    train_dls = [build_data_loader(recs, batch_size=args.batch_size, train=True,
-                                   max_load_times=args.max_load_times, seed=args.seed,
-                                   drop_last=True, **loader_kw)
-                 for recs in _manifests(args.train_recordings)]
-    valid_dls = [build_data_loader(recs, batch_size=min(args.batch_size, 32), train=False,
-                                   **loader_kw)
-                 for recs in (_manifests(args.valid_recordings) if args.valid_recordings else [])]
-
-    optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
-    model_avg = {k: v.detach().double().clone() for k, v in model.state_dict().items()}
+    optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0,
+                           lr_scales=lr_scales(args, model.named_parameters()))
+    # the running average lives on rank 0, which alone writes checkpoints
+    model_avg = ({k: v.detach().double().clone() for k, v in model.state_dict().items()}
+                 if main else None)
     batch_idx_train = 0
-    if args.start_epoch > 1:
-        resume = exp_dir / f"epoch-{args.start_epoch - 1}.pt"
-        if not resume.exists():
-            raise FileNotFoundError(f"--start-epoch {args.start_epoch} resumes from {resume}, "
-                                    "which does not exist")
-        logging.info(f"Resuming from {resume}")
-        loaded = ckpt.load_checkpoint(resume)
+    resume_sampler = None
+    loaded = resume_checkpoint(args, exp_dir)
+    if loaded is not None:
         model.load_state_dict(loaded["model"])
         optimizer.load_state_dict(loaded["optimizer"])
-        model_avg = {k: v.to(device) for k, v in loaded["model_avg"].items()}
+        if main:
+            model_avg = {k: v.to(device) for k, v in loaded["model_avg"].items()}
         batch_idx_train = int(loaded["batch_idx_train"])
+        if args.resume_from and loaded.get("sampler") is not None:
+            resume_sampler = loaded["sampler"]
+            args.start_epoch = int(resume_sampler["epoch"])
+            logging.info(f"Sampler restored: epoch {args.start_epoch}, consumed "
+                         f"{[d['consumed'] for d in resume_sampler['dl_states']]}")
+        del loaded
+    dist.assert_replicas_equal(list(model.parameters()))
 
-    def save(filename, **extra):
+    def save(filename, sampler_state=None, **extra):
         ckpt.save_checkpoint(filename, model=model.state_dict(), model_avg=model_avg,
                              optimizer_state=optimizer.state_dict(),
                              train_params={"batch_idx_train": batch_idx_train,
-                                           "model_name": args.model_name, **extra})
+                                           "model_name": args.model_name, **extra},
+                             sampler_state=sampler_state)
+
+    def save_bad_model(suffix):
+        if main:
+            save(exp_dir / f"bad-model{suffix}.pt")
 
     epoch0 = exp_dir / "epoch-0.pt"
-    if args.start_epoch == 1 and not epoch0.exists():
+    if main and args.start_epoch == 1 and not epoch0.exists():
         # so that a window (epoch-0, epoch-N] is defined for every N
         save(epoch0)
 
     guard = NonfiniteLossGuard()
     history = []
     for epoch in range(args.start_epoch, args.num_epochs + 1):
-        for dl in train_dls:
-            dl.set_epoch(epoch)
-        rng_py = random.Random(args.seed + epoch)
+        rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
+        resume_sampler = None
         iters = [iter(dl) for dl in train_dls]
         tot_losses = [MetricsTracker() for _ in train_dls]
         batch_idx = 0
         while True:
-            dl_idx = rng_py.choices(range(len(iters)), k=1)[0]
+            dl_idx = rng_py.choices(range(len(iters)), weights=dls_weights, k=1)[0]
             try:
                 batch = next(iters[dl_idx])
             except StopIteration:
@@ -225,7 +342,7 @@ def run(args) -> List[dict]:
                 step_generator(args.seed + 1, batch_idx_train - 1, device))
             loss_val = float(metrics["loss"])
             clip_val = float(metrics["clip_scale"])
-            history.append({"batch_idx_train": batch_idx_train, "loss": loss_val,
+            history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "loss": loss_val,
                             "lr": metrics["lr"], "clip_scale": clip_val,
                             "ms": (time.perf_counter() - start) * 1e3})
             n = batch["audio"].shape[0]
@@ -233,14 +350,15 @@ def run(args) -> List[dict]:
             info["samples"] = n
             info["loss"] = loss_val * n
             tot_losses[dl_idx] = tot_losses[dl_idx] + info
-            guard.check(loss_val, clip_val, batch_idx_train,
-                        lambda suffix: save(exp_dir / f"bad-model{suffix}.pt"))
+            # the loss is the global batch's: every rank decides alike
+            guard.check(loss_val, clip_val, batch_idx_train, save_bad_model)
 
-            if batch_idx_train % args.average_period == 0:
+            if main and batch_idx_train % args.average_period == 0:
                 model_avg = ckpt.update_averaged_model(model_avg, model.state_dict(),
                                                        args.average_period, batch_idx_train)
-            if batch_idx_train % args.save_every_n == 0:
-                save(exp_dir / f"checkpoint-{batch_idx_train}.pt")
+            if main and batch_idx_train % args.save_every_n == 0:
+                save(exp_dir / f"checkpoint-{batch_idx_train}.pt",
+                     sampler_state=ckpt.sampler_state_snapshot(epoch, train_dls, rng_py))
                 ckpt.remove_checkpoints(exp_dir, topk=args.keep_last_k)
             if batch_idx_train % args.log_interval == 0:
                 logging.info(f"Epoch {epoch}, batch {batch_idx} (dl {dl_idx}), global "
@@ -255,11 +373,13 @@ def run(args) -> List[dict]:
                         valid["loss"] += float(fm_eval_loss(model, mel_fn, _to_device(vb, device),
                                                             gen)) * n
                         valid["samples"] += n
+                valid.reduce(device)
                 logging.info(f"Epoch {epoch}, validation: {valid}")
                 if device.type == "cuda":
                     logging.info(f"Peak device memory {torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
 
-        save(exp_dir / f"epoch-{epoch}.pt", base_lr=args.base_lr)
+        if main:
+            save(exp_dir / f"epoch-{epoch}.pt", base_lr=args.base_lr)
     logging.info("Done!")
     return history
 

@@ -13,9 +13,11 @@ own copy of `flow2gan_tpu/data/dataset.py`:
 - batches of the crop length, or for whole files of the longest item
   rounded up to `_bucket_length`; silent items are dropped and the batch
   refilled by repeating the others;
-- a thread-pool loader, deterministic per (seed, epoch).
-
-Per-process sharding waits for its item (ROADMAP.md, 'DDP').
+- a thread-pool loader, deterministic per (seed, epoch), over this
+  process's strided, equal-size shard of the recordings (each process of a
+  multi-process run loads its share of the global batch); a training
+  loader keeps its position in the epoch (`state_dict`) for a mid-epoch
+  resume.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import numpy as np
 
 from flow2gan_tpu_torch.data import native_audio
 from flow2gan_tpu_torch.data.audio_io import peak_normalize_db, read_wav, resample
+from flow2gan_tpu_torch.parallel import dist
 
 Pathlike = Union[str, Path]
 
@@ -197,12 +200,24 @@ def pad_collate(items, length: Optional[int]) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Thread-pool prefetching loader over a `RecordingDataset`, its batches
     padded to the crop length (whole files: see `pad_collate`).
-    Deterministic per (seed, epoch): call `set_epoch` each epoch."""
+    Deterministic per (seed, epoch): call `set_epoch` each epoch.
+
+    Process `process_index` of `process_count` (default: this rank of the
+    process group) loads the strided shard idx[index::count] of the
+    epoch's order, cut to equal sizes; a dataset smaller than the process
+    count is loaded whole by every process. A `resumable` loader counts the
+    batches it has handed out this epoch: `state_dict()` is (epoch,
+    consumed), and after `load_state_dict` the next pass skips the batches
+    already consumed. A pass that runs to its end resets the count, so a
+    loader iterated again without `set_epoch` replays the epoch.
+    """
 
     prefetch = 4  # batches waiting beyond the workers' own
 
     def __init__(self, dataset: RecordingDataset, batch_size: int, shuffle: bool = False,
-                 num_workers: int = 8, drop_last: bool = False, seed: int = 0):
+                 num_workers: int = 8, drop_last: bool = False, seed: int = 0,
+                 process_index: Optional[int] = None, process_count: Optional[int] = None,
+                 resumable: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -212,18 +227,38 @@ class DataLoader:
                        else int(dataset.duration * dataset.sampling_rate))
         self.seed = seed
         self.epoch = 0
+        if process_index is None or process_count is None:
+            process_index, process_count = dist.shard()
+        self.process_index = process_index
+        self.process_count = process_count
+        self.resumable = resumable
+        self._consumed = 0  # batches handed out this epoch
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        self._consumed = 0
+
+    def state_dict(self) -> Dict[str, int]:
+        """The position in the epoch: the batch order is fixed by (seed,
+        epoch), so the epoch and the count of batches consumed suffice."""
+        return {"epoch": self.epoch, "consumed": self._consumed}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.epoch = int(state["epoch"])
+        self._consumed = int(state["consumed"])
 
     def _indices(self) -> np.ndarray:
-        idx = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        idx = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
-        return idx
+        per = n // self.process_count
+        if per == 0:
+            return idx
+        return idx[: per * self.process_count][self.process_index :: self.process_count]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
@@ -231,6 +266,11 @@ class DataLoader:
         batches = [indices[i : i + self.batch_size] for i in range(0, len(indices), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.resumable and self._consumed:
+            batches = batches[self._consumed :]
+        if not batches:
+            self._consumed = 0
+            return
         epoch = self.epoch
 
         def load_batch(idx_list):
@@ -270,9 +310,15 @@ class DataLoader:
             while True:
                 item = out_q.get()
                 if item is None:
+                    # the end of the epoch's stream (an early break by the
+                    # consumer skips this and keeps the position)
+                    self._consumed = 0
                     break
                 if isinstance(item, Exception):
                     raise item
+                # counted before it is handed out: the trainer checkpoints
+                # between batches, and this one is then consumed
+                self._consumed += 1
                 yield item
         finally:
             stop.set()
@@ -299,9 +345,11 @@ def build_data_loader(
 ) -> DataLoader:
     """A loader of `duration`-second crops, shuffled and at random offsets
     for training, padded to the crop length; or of whole files
-    (`duration=None`) in manifest order."""
+    (`duration=None`) in manifest order. This process's shard; only a
+    training loader is resumable (eval loaders are iterated again and again
+    without `set_epoch`)."""
     dataset = RecordingDataset(recordings, sampling_rate=sampling_rate, root_path=root_path,
                                train=train, duration=duration, apply_effects=apply_effects,
                                max_load_times=max_load_times, seed=seed)
     return DataLoader(dataset, batch_size=batch_size, shuffle=train, num_workers=num_workers,
-                      drop_last=drop_last, seed=seed)
+                      drop_last=drop_last, seed=seed, resumable=train)

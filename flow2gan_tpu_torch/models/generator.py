@@ -17,6 +17,13 @@ The GAN stage differentiates the whole n-step solve in train form
 the limiters' gates of each Euler step. The JAX package draws a fresh gate at
 every limiter call, so the cond encoder's limiters draw once per rollout and
 each branch's once per step.
+
+In a multi-process run each process holds its rows of the global batch
+(`Shard`): the draws are made for the global batch from the step's
+generator on every rank, and each rank takes its rows, so that the run
+equals one process on the global batch. The loss of one rank is then its
+masked sum over the global batch's count (`loss_count`, summed over the
+ranks by the caller), its share of the global loss.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from torch import nn
 from flow2gan_tpu_torch.models.convnext import AudioConvNeXt, CondEncoder
 from flow2gan_tpu_torch.models.norms import number_limiters
 from flow2gan_tpu_torch.ops.mel import linear_fbanks, spectrogram
-from flow2gan_tpu_torch.ops.stft import stft_lens
+from flow2gan_tpu_torch.ops.stft import num_frames, stft_lens
+from flow2gan_tpu_torch.parallel.dist import Shard
 from flow2gan_tpu_torch.utils import make_valid_mask
 
 
@@ -200,29 +208,46 @@ class MelAudioGenerator(nn.Module):
         """Linear-filterbank power spectrogram, time-major (B, T_s, n_filters)."""
         return spectrogram(audio, self.loss_n_fft, self.loss_hop_length, power=2.0) @ self.loss_fbank
 
+    def _loss_mask(self, audio_lens: torch.Tensor, length: int) -> torch.Tensor:
+        """The loss's mask over the samples (B, L), or with
+        `spec_scaling_loss` over the loss spectrogram's frames (B, T_s, 1)."""
+        if not self.spec_scaling_loss:
+            return make_valid_mask(audio_lens, length)
+        frames = num_frames(length, self.loss_hop_length)
+        return make_valid_mask(stft_lens(audio_lens, self.loss_hop_length), frames)[..., None]
+
+    def loss_count(self, audio_lens: torch.Tensor, length: int) -> torch.Tensor:
+        """The denominator of `compute_loss` for a batch of (B, `length`)
+        waveforms: the masked element count."""
+        count = self._loss_mask(audio_lens, length).sum()
+        return count * self.loss_fbank.shape[-1] if self.spec_scaling_loss else count
+
     def compute_loss(
         self,
         pred: torch.Tensor,
         ref: torch.Tensor,
         audio_lens: torch.Tensor,
         gt_audio: Optional[torch.Tensor] = None,
+        count: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Masked MSE, or with `spec_scaling_loss` the squared error's
         linear-filterbank power spectrum weighted by (gt power + eps)^-power,
         clamped to [loss_scale_min, loss_scale_max], which up-weights quiet
-        spectral regions."""
+        spectral regions. The masked sum is divided by `count` where given
+        (the global batch's `loss_count`), else by this batch's."""
         err = pred - ref
+        mask = self._loss_mask(audio_lens, err.shape[-1])
         if not self.spec_scaling_loss:
-            mask = make_valid_mask(audio_lens, err.shape[-1])
-            return (err**2 * mask).sum() / mask.sum()
+            total = (err**2 * mask).sum()
+            return total / (mask.sum() if count is None else count)
         if gt_audio is None:
             raise ValueError("the spectral-energy-scaled loss needs gt_audio")
         gt_spec = self._loss_spec(gt_audio)
         err_spec = self._loss_spec(err)
-        mask = make_valid_mask(stft_lens(audio_lens, self.loss_hop_length), err_spec.shape[1])[..., None]
         spec_scale = torch.clamp((gt_spec + self.loss_eps) ** -self.loss_power,
                                  min=self.loss_scale_min, max=self.loss_scale_max)
-        return (err_spec * spec_scale * mask).sum() / (mask.sum() * err_spec.shape[-1])
+        total = (err_spec * spec_scale * mask).sum()
+        return total / ((mask.sum() * err_spec.shape[-1]) if count is None else count)
 
     def flow_matching_loss(
         self,
@@ -234,6 +259,7 @@ class MelAudioGenerator(nn.Module):
         generator: Optional[torch.Generator] = None,
         gates: Optional[torch.Tensor] = None,
         branch_weight: Optional[torch.Tensor] = None,
+        count: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """FM loss with the endpoint target at flow time t (B,), drawn from
         `generator` when not given; cond is encoded, channels-last."""
@@ -243,17 +269,21 @@ class MelAudioGenerator(nn.Module):
         ref = x1 if self.pred_x1 else x1 - x0
         pred = self.process_model(x, cond, t, audio_lens=audio_lens, gates=gates,
                                   branch_weight=branch_weight)
-        return self.compute_loss(pred, ref, audio_lens, gt_audio=x1)
+        return self.compute_loss(pred, ref, audio_lens, gt_audio=x1, count=count)
 
     def draw(self, audio: torch.Tensor, n_frames: int, generator: torch.Generator,
-             train: bool = True) -> FMDraws:
+             train: bool = True, shard: Shard = Shard()) -> FMDraws:
         """The draws of one loss on (B, L) `audio` with `n_frames` mel frames,
         from `generator` (on audio's device): x0 ~ N(0, init_noise_scale^2),
         t ~ U(0, 1); in training also the gates (Bernoulli 0.6), branch
-        dropout and the mel noise, as far as the config turns them on."""
-        b, dev = audio.shape[0], audio.device
-        x0 = torch.randn(audio.shape, generator=generator, device=dev) * self.init_noise_scale
-        t = torch.rand(b, generator=generator, device=dev)
+        dropout and the mel noise, as far as the config turns them on.
+        `audio` is `shard`'s rows of the global batch: every draw is made for
+        the global batch and cut to those rows (the gates, one per limiter,
+        are whole)."""
+        b, dev = audio.shape[0] * shard.count, audio.device
+        x0 = shard.rows(torch.randn((b, audio.shape[-1]), generator=generator, device=dev)
+                        * self.init_noise_scale)
+        t = shard.rows(torch.rand(b, generator=generator, device=dev))
         if not train:
             return FMDraws(x0, t)
         gates = (torch.rand(self.num_limiters, generator=generator, device=dev) < 0.6).float()
@@ -262,19 +292,22 @@ class MelAudioGenerator(nn.Module):
         if self.branch_dropout > 0.0 and nb > 1:
             idx = torch.randint(0, nb, (b,), generator=generator, device=dev)
             drop = torch.rand(b, 1, generator=generator, device=dev) < self.branch_dropout
-            weight = branch_dropout_weight(idx, drop, nb)
+            weight = shard.rows(branch_dropout_weight(idx, drop, nb))
         noise = None
         if self.max_add_noise_scale > 0.0:
             scale = torch.rand(b, 1, 1, generator=generator, device=dev) * self.max_add_noise_scale
-            noise = torch.randn(b, n_frames, self.n_mels, generator=generator, device=dev) * scale
+            noise = shard.rows(torch.randn(b, n_frames, self.n_mels, generator=generator,
+                                           device=dev) * scale)
         return FMDraws(x0, t, gates, weight, noise)
 
     def forward(self, cond: torch.Tensor, audio: torch.Tensor, audio_lens: torch.Tensor,
-                draws: FMDraws) -> torch.Tensor:
-        """FM loss. cond: (B, n_mels, frames); audio: (B, L)."""
+                draws: FMDraws, count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """FM loss. cond: (B, n_mels, frames); audio: (B, L); `count` as in
+        `compute_loss`."""
         cond = self._encode_cond(cond, draws.cond_noise, draws.gates)
         return self.flow_matching_loss(draws.x0, audio, cond, audio_lens, t=draws.t,
-                                       gates=draws.gates, branch_weight=draws.branch_weight)
+                                       gates=draws.gates, branch_weight=draws.branch_weight,
+                                       count=count)
 
     def _euler_step(self, x: torch.Tensor, cond: torch.Tensor, t: float, dt: float,
                     audio_lens: Optional[torch.Tensor], gates: Optional[torch.Tensor]):
@@ -318,13 +351,16 @@ class MelAudioGenerator(nn.Module):
         return self.cond_encoder(cond, gates=gates) if self.cond_encoder is not None else cond
 
     def draw_rollout(self, batch: int, n_frames: int, n_timesteps: int,
-                     generator: torch.Generator, train: bool = True) -> RolloutDraws:
-        """The draws of one rollout over `n_frames` mel frames, from
-        `generator` (on its device): x0 ~ N(0, init_noise_scale^2), then in
-        training a Bernoulli(0.6) gate per limiter and step."""
+                     generator: torch.Generator, train: bool = True,
+                     shard: Shard = Shard()) -> RolloutDraws:
+        """The draws of one rollout of `batch` rows over `n_frames` mel
+        frames, from `generator` (on its device): x0 ~ N(0,
+        init_noise_scale^2), then in training a Bernoulli(0.6) gate per
+        limiter and step. The rows are `shard`'s of the global batch, whose
+        x0 is drawn whole."""
         dev = generator.device
-        x0 = torch.randn(batch, n_frames * self.mel_hop_length, generator=generator,
-                         device=dev) * self.init_noise_scale
+        x0 = shard.rows(torch.randn(batch * shard.count, n_frames * self.mel_hop_length,
+                                    generator=generator, device=dev) * self.init_noise_scale)
         if not train:
             return RolloutDraws(x0)
         gates = torch.rand(n_timesteps, self.num_limiters, generator=generator, device=dev) < 0.6

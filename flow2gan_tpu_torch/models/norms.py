@@ -9,6 +9,11 @@ Bernoulli(0.6) gate is on. The gates of one forward are a tensor `gates` of
 `gate_index` (the generator numbers them); a test passes its own, training
 draws them on the device (`MelAudioGenerator.draw`), so no gate is read on
 the host. `gates=None` is the eval form.
+
+The flip depends on the sign of the gradient, so it is not linear in it: in a
+multi-process run each call's flip is decided on the gradient summed over
+the ranks (one small all-reduce per call in backward), as one process on the
+global batch decides it, and applied to each rank's part.
 """
 
 from __future__ import annotations
@@ -18,12 +23,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from flow2gan_tpu_torch.parallel import dist
+
 
 class LimitParamValue(torch.autograd.Function):
     """Identity forward; backward as the JAX package's `_limit_value_bwd`:
     where the gate is on, a positive gradient of an x below `lo` and a
     negative one of an x above `hi` change sign, so that descent moves x
-    back into [lo, hi]."""
+    back into [lo, hi]. The sign is the global batch's gradient's."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, gate: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
@@ -36,7 +43,11 @@ class LimitParamValue(torch.autograd.Function):
         x, gate = ctx.saved_tensors
         lo, hi = ctx.bounds
         active = gate > 0.5
-        flip = ((active & (g > 0) & (x < lo)) | (active & (g < 0) & (x > hi)))
+        total = g
+        if dist.world_size() > 1:
+            total = g.clone()
+            dist.all_reduce_sum_([total])
+        flip = ((active & (total > 0) & (x < lo)) | (active & (total < 0) & (x > hi)))
         return torch.where(flip, -g, g), None, None, None
 
 

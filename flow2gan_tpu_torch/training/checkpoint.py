@@ -3,7 +3,11 @@
 
 A checkpoint is a `torch.save`d dict: the model's `state_dict` ("model"), the
 float64 running average of the parameters ("model_avg"), the optimizer's
-state and the trainer's own values (the batch count). The GAN trainer's
+state, the trainer's own values (the batch count) and, in a batch
+checkpoint, the sampler's position ("sampler": each training loader's
+epoch and consumed batches, and the state of the Python RNG that picks the
+loader of each batch), from which `--resume-from` continues mid-epoch. Only
+rank 0 of a multi-process run writes; every rank reads. The GAN trainer's
 "model" is `{"generator": ..., "discriminator": ...}`, its "optimizer"
 `{"g": ..., "d": ...}`, and its "model_avg" the generator's alone.
 Averaging:
@@ -23,9 +27,10 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import random
 import re
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -51,11 +56,13 @@ def save_checkpoint(
     model_avg: Optional[StateDict] = None,
     optimizer_state: Optional[dict] = None,
     train_params: Optional[Dict[str, Any]] = None,
+    sampler_state: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Save a training checkpoint, atomically (a reader never sees half a
     file). The tensors are moved to the CPU first."""
     logging.info(f"Saving checkpoint to {filename}")
-    ckpt = {"model": model, "model_avg": model_avg, "optimizer": optimizer_state}
+    ckpt = {"model": model, "model_avg": model_avg, "optimizer": optimizer_state,
+            "sampler": sampler_state}
     for k, v in (train_params or {}).items():
         if k in ckpt:
             raise KeyError(f"train param {k!r} clashes with a checkpoint entry")
@@ -119,6 +126,29 @@ def average_checkpoints_with_averaged_model(filename_start: Pathlike,
     avg = average_state_trees(end["model_avg"], start["model_avg"], weight_1=1.0,
                               weight_2=weight_start / weight_end, scaling_factor=weight_end)
     return {k: v.float() for k, v in avg.items()}
+
+
+def sampler_state_snapshot(epoch: int, train_dls, rng_py: random.Random) -> Dict[str, Any]:
+    """What the epoch loop needs to continue mid-epoch: each training
+    loader's position and the state of the RNG that picks the loader."""
+    version, state, gauss = rng_py.getstate()
+    return {"epoch": epoch, "dl_states": [dl.state_dict() for dl in train_dls],
+            "rng_py": {"version": version, "state": list(state), "gauss": gauss}}
+
+
+def restore_sampler_state(snapshot: Dict[str, Any], train_dls) -> Tuple[int, random.Random]:
+    """Put the loaders back where `sampler_state_snapshot` found them;
+    returns the epoch and the loader-picking RNG."""
+    if len(snapshot["dl_states"]) != len(train_dls):
+        raise ValueError(f"the checkpoint's sampler holds {len(snapshot['dl_states'])} "
+                         f"training loaders, this run has {len(train_dls)}")
+    for dl, state in zip(train_dls, snapshot["dl_states"]):
+        dl.load_state_dict(state)
+    r = snapshot["rng_py"]
+    rng_py = random.Random()
+    rng_py.setstate((int(r["version"]), tuple(int(x) for x in r["state"]),
+                     None if r["gauss"] is None else float(r["gauss"])))
+    return int(snapshot["epoch"]), rng_py
 
 
 # ------------------------------------------------------- filename management

@@ -18,6 +18,13 @@ package. The draws of a step are one `RolloutDraws`, made by the caller
 from the device: their metrics are device tensors. The JAX package's scanned
 rollout exists only for the TPU compiler and is not ported; `remat_rollout`
 recomputes each Euler step in backward instead of keeping its activations.
+
+In a multi-process run (`parallel.dist`) each rank holds its rows of the
+global batch and the draws are the global batch's rows (`draw_rollout`'s
+shard). Every loss term is a mean over equal-size per-row blocks, so a
+rank's objective is its mean divided by the world size, its share of the
+global mean; the steps sum the moved side's gradients and the metrics over
+the ranks and so equal one process on the global batch.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from flow2gan_tpu_torch.models.gan import (
     mel_recon_loss,
 )
 from flow2gan_tpu_torch.models.generator import MelAudioGenerator, RolloutDraws
+from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 
 Batch = Dict[str, torch.Tensor]  # "audio" (B, L), "audio_lens" (B,)
@@ -102,8 +110,26 @@ def make_gan_loss_fns(
     return d_loss_fn, g_loss_fn
 
 
-def _detached(metrics: Metrics) -> Metrics:
-    return {k: v.detach() for k, v in metrics.items()}
+def _global(metrics: Metrics, params) -> Metrics:
+    """The metrics of one rank's objective, detached and summed over the
+    ranks together with `params`' gradients (each a 1/world share already);
+    in one process just detached."""
+    out = {k: v.detach() for k, v in metrics.items()}
+    dist.all_reduce_grads_(params, list(out.values()))
+    return out
+
+
+def _share(loss_fn, world: int):
+    """`loss_fn` with its loss and metrics divided by the world size: a
+    rank's share of the global batch's means."""
+    if world == 1:
+        return loss_fn
+
+    def share(batch: Batch, draws: RolloutDraws):
+        loss, metrics = loss_fn(batch, draws)
+        return loss / world, {k: v / world for k, v in metrics.items()}
+
+    return share
 
 
 def make_gan_steps(
@@ -121,32 +147,38 @@ def make_gan_steps(
 ):
     """(d_step, g_step, eval_step), each (batch, draws) -> metrics; the two
     training steps update their side in place and free its gradients. The
-    D/G alternation is the caller's loop."""
-    d_loss_fn, g_loss_fn = make_gan_loss_fns(
-        generator, discriminators, mel_fn, mel_recon_fns, n_timesteps, scales, remat_rollout)
-    params_g = [p for p in generator.parameters() if p.requires_grad]
-    params_d = [p for p in discriminators.parameters() if p.requires_grad]
+    D/G alternation is the caller's loop. The metrics are the global
+    batch's on every rank."""
+    world = dist.world_size()
+    d_loss_fn, g_loss_fn = (_share(fn, world) for fn in make_gan_loss_fns(
+        generator, discriminators, mel_fn, mel_recon_fns, n_timesteps, scales, remat_rollout))
+    params_g = [p for g in optimizer_g.groups for p in g.params]
+    params_d = [p for g in optimizer_d.groups for p in g.params]
 
     def d_step(batch: Batch, draws: RolloutDraws) -> Metrics:
         loss, metrics = d_loss_fn(batch, draws)
         loss.backward(inputs=params_d)
+        metrics = _global(metrics, params_d)
         lr = lr_d_fn(optimizer_d.step_count)
         optimizer_d.step(lr)
         optimizer_d.zero_grad()
-        return {**_detached(metrics), "lr_d": lr, "clip_scale": optimizer_d.clip_scale,
+        return {**metrics, "lr_d": lr, "clip_scale": optimizer_d.clip_scale,
                 "samples": batch["audio"].shape[0]}
 
     def g_step(batch: Batch, draws: RolloutDraws) -> Metrics:
         loss, metrics = g_loss_fn(batch, draws)
         loss.backward(inputs=params_g)
+        metrics = _global(metrics, params_g)
         lr = lr_g_fn(optimizer_g.step_count)
         optimizer_g.step(lr)
         optimizer_g.zero_grad()
-        return {**_detached(metrics), "lr_g": lr, "clip_scale": optimizer_g.clip_scale,
+        return {**metrics, "lr_g": lr, "clip_scale": optimizer_g.clip_scale,
                 "samples": batch["audio"].shape[0]}
 
     @torch.no_grad()
     def eval_step(batch: Batch, draws: RolloutDraws) -> Metrics:
-        return g_loss_fn(batch, RolloutDraws(draws.x0))[1]
+        metrics = g_loss_fn(batch, RolloutDraws(draws.x0))[1]
+        dist.all_reduce_sum_(list(metrics.values()))
+        return metrics
 
     return d_step, g_step, eval_step

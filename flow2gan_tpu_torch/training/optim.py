@@ -9,7 +9,12 @@ lineage):
   at steps 10, 20 and 40 (with a 2x margin) and then every period;
 - scalars get `scalar_lr_scale` and a +-`scalar_max` clamp;
 - a non-finite gradient zeroes the update at every step, before the
-  threshold is calibrated too (the JAX package's rule).
+  threshold is calibrated too (the JAX package's rule);
+- per-parameter lr scales (`lr_scales`, from `--lr-scale-rules` and
+  `--freeze-modules` through `make_lr_scales`) multiply the update's lr and
+  the size update's, not the clipping statistic. A frozen parameter has
+  scale 0: it keeps its gradient, its place in the clipping norm and its
+  second moment, as in the JAX package, and its update is zero.
 
 Speed: mel_24k_base has 425 parameter tensors of 29 shapes, so a loop over
 tensors would launch thousands of small kernels per step. Like the
@@ -23,7 +28,8 @@ schedule branches on the host and `step` never waits for the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+import re
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +45,7 @@ class _Group:
     param_rms: torch.Tensor  # (k,)
     scale_grads: torch.Tensor  # (k, size_update_period)
     scale_exp_avg_sq: torch.Tensor  # (k,)
+    lr_scale: Optional[torch.Tensor] = None  # (k,); None: all 1
 
     @property
     def is_scalar(self) -> bool:
@@ -57,7 +64,10 @@ class ScaledAdam:
 
     `step(lr)` reads each parameter's `.grad` (None counts as zero) and
     updates the parameters in place. `clip_scale` is the last step's clipping
-    factor on the device: 0 where the gradient was not finite.
+    factor on the device: 0 where the gradient was not finite. `lr_scales`
+    maps parameter names to lr multipliers (`make_lr_scales`; a name it does
+    not hold keeps 1); they are not part of `state_dict`, as the JAX
+    package's checkpoints do not hold them.
     """
 
     def __init__(
@@ -72,6 +82,7 @@ class ScaledAdam:
         scalar_max: float = 10.0,
         size_update_period: int = 4,
         clipping_update_period: int = 100,
+        lr_scales: Optional[Mapping[str, float]] = None,
     ):
         self.clipping_scale = clipping_scale
         self.betas = betas
@@ -90,6 +101,11 @@ class ScaledAdam:
             raise ValueError("ScaledAdam got no parameters")
         self.groups = [self._new_group(items) for items in by_shape.values()]
         dev = self.groups[0].params[0].device
+        if lr_scales:
+            for g in self.groups:
+                scales = [float(lr_scales.get(n, 1.0)) for n in g.names]
+                if any(x != 1.0 for x in scales):
+                    g.lr_scale = torch.tensor(scales, device=dev)
         self.step_count = 0
         self.model_norms = torch.zeros(clipping_update_period, device=dev)
         self.model_norm_threshold = torch.tensor(float("inf"), device=dev)
@@ -182,6 +198,8 @@ class ScaledAdam:
             g.exp_avg_sq.mul_(beta2).addcmul_(gr, gr, value=1.0 - beta2)
             eas = g.exp_avg_sq / bc2 if bc2 < 0.99 else g.exp_avg_sq
             d = gr / (eas.sqrt() + self.eps)
+            if g.lr_scale is not None:
+                d = d * g.rows(g.lr_scale)
             if g.is_scalar:
                 d = d * (-lr * self.scalar_lr_scale)
             else:
@@ -196,6 +214,8 @@ class ScaledAdam:
                     sg = g.scale_grads
                     seas = beta2_corr * g.scale_exp_avg_sq + (1.0 - beta2_corr) * sg.square().mean(dim=1)
                     scale_step = -size_lr * bc2_size ** 0.5 * sg.sum(dim=1) / (seas.sqrt() + self.eps)
+                    if g.lr_scale is not None:
+                        scale_step = scale_step * g.lr_scale
                     scale_step = torch.where(g.param_rms < self.param_min_rms,
                                              torch.zeros_like(scale_step), scale_step)
                     scale_step = torch.clamp(scale_step, -0.1, 0.1)
@@ -238,6 +258,76 @@ class ScaledAdam:
         self.step_count = int(state["step"])
         for key in ("model_norms", "model_norm_threshold", "num_clipped", "clip_scale"):
             setattr(self, key, state[key].to(dev, copy=True))
+
+
+# -------------------------------------------------- per-parameter lr scaling
+
+_LIST_NAMES = ("blocks", "estimators", "discriminators", "convs", "band_convs")
+
+
+def jax_path(name: str) -> Tuple[str, ...]:
+    """The JAX package's parameter path of a port parameter name, the
+    inverse of `compat/from_jax.py`'s renaming: `estimators.0.blocks.3.
+    dwconv.weight` -> (`estimators_0`, `blocks_3`, `dwconv`, `kernel`);
+    `band_convs.<b>.<i>` -> `band_convs_<b>_<i>`; a Linear or Conv `weight`
+    is flax's `kernel`."""
+    parts = name.split(".")
+    out: List[str] = []
+    i = 0
+    while i < len(parts):
+        part = parts[i]
+        n = 2 if part == "band_convs" else 1
+        if part in _LIST_NAMES and all(re.fullmatch(r"\d+", x) for x in parts[i + 1:i + 1 + n]):
+            out.append("_".join(parts[i:i + 1 + n]))
+            i += 1 + n
+        else:
+            out.append(part)
+            i += 1
+    if out[-1] == "weight":
+        out[-1] = "kernel"
+    return tuple(out)
+
+
+def make_lr_scales(named_params: Iterable[Tuple[str, torch.Tensor]],
+                   rules: Optional[Mapping[str, float]] = None,
+                   default: float = 1.0) -> Dict[str, float]:
+    """Each parameter's lr multiplier from path-prefix rules in the JAX
+    package's syntax (`make_lr_scale_tree`): a rule "estimators_0/blocks_0"
+    matches every parameter under that prefix of its JAX path (`jax_path`),
+    and rules compose by multiplication along the path. 0 freezes."""
+    rules = rules or {}
+    scales = {}
+    for name, _ in named_params:
+        parts = jax_path(name)
+        scale = default
+        for i in range(1, len(parts) + 1):
+            prefix = "/".join(parts[:i])
+            if prefix in rules:
+                scale *= rules[prefix]
+        scales[name] = scale
+    return scales
+
+
+def parse_lr_scale_rules(lr_scale_rules: Optional[str] = None,
+                         freeze_modules: Optional[str] = None) -> Optional[Dict[str, float]]:
+    """The trainers' flags as `make_lr_scales` rules: `lr_scale_rules`
+    "prefix=scale,prefix=scale" (e.g. "cond_encoder=0.5,
+    estimators_0/blocks_0=0.1"), `freeze_modules` a CSV of prefixes that get
+    0. None when both are empty."""
+    rules = {}
+    for item in (lr_scale_rules or "").split(","):
+        item = item.strip()
+        if not item:
+            continue
+        prefix, sep, scale = item.partition("=")
+        if not sep:
+            raise ValueError(f"bad lr-scale rule {item!r}; want prefix=scale")
+        rules[prefix.strip()] = float(scale)
+    for prefix in (freeze_modules or "").split(","):
+        prefix = prefix.strip()
+        if prefix:
+            rules[prefix] = 0.0
+    return rules or None
 
 
 # ----------------------------------------------------------------- schedules

@@ -13,6 +13,7 @@ import pathlib
 from datetime import datetime
 
 import torch
+import torch.distributed
 
 
 def make_valid_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -86,9 +87,16 @@ def str2bool(v):
     raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
-def setup_logger(log_filename) -> None:
-    """Log INFO and above to `log_filename`-<date-time> and to the console."""
+def setup_logger(log_filename, rank: int = 0, world_size: int = 1) -> None:
+    """Log INFO and above to `log_filename`-<date-time> and to the console.
+    With `world_size` > 1 each line carries "(rank/world_size)", and a rank
+    other than 0 logs to the console only (only rank 0 writes files)."""
     formatter = "%(asctime)s %(levelname)s [%(filename)s:%(lineno)d] %(message)s"
+    if world_size > 1:
+        formatter = formatter.replace("] ", f"] ({rank}/{world_size}) ", 1)
+    if rank != 0:
+        logging.basicConfig(format=formatter, level=logging.INFO, force=True)
+        return
     log_filename = f"{log_filename}-{datetime.now().strftime('%Y-%m-%d-%H-%M-%S')}"
     os.makedirs(os.path.dirname(log_filename), exist_ok=True)
     logging.basicConfig(filename=log_filename, format=formatter, level=logging.INFO,
@@ -116,6 +124,17 @@ class MetricsTracker(collections.defaultdict):
     def norm_items(self):
         samples = self["samples"] if "samples" in self else 1
         return [(k, float(v) / samples) for k, v in self.items() if k != "samples"]
+
+    def reduce(self, device: torch.device) -> None:
+        """Sum every metric over the ranks (float64 on `device`, the
+        process group's); a no-op in one process."""
+        if not torch.distributed.is_initialized() or torch.distributed.get_world_size() == 1:
+            return
+        keys = sorted(self)
+        values = torch.tensor([float(self[k]) for k in keys], dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(values)
+        for k, v in zip(keys, values.tolist()):
+            self[k] = v
 
     def __str__(self) -> str:
         ans = "".join(f"{k}={v:.4g}, " for k, v in self.norm_items())

@@ -45,8 +45,9 @@ def test_port_imports_no_jax():
         "flow2gan_tpu_torch.data.native_audio", "flow2gan_tpu_torch.bin.infer",
         "flow2gan_tpu_torch.bin.infer_dir", "flow2gan_tpu_torch.models.discriminators",
         "flow2gan_tpu_torch.models.gan", "flow2gan_tpu_torch.training.gan_step",
-        "flow2gan_tpu_torch.bin.finetune",
-    } <= set(modules) and len(modules) >= 33
+        "flow2gan_tpu_torch.bin.finetune", "flow2gan_tpu_torch.parallel",
+        "flow2gan_tpu_torch.parallel.dist",
+    } <= set(modules) and len(modules) >= 35
 
 
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):

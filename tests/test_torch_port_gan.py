@@ -382,15 +382,11 @@ def test_load_gan_clis_export_and_serve_the_generator(finetuned, tmp_path):
 
 @pytest.mark.parametrize("flag,value,item", [
     ("--tokenizer", "codebook.npz", "'The token family'"),
-    ("--train-dls-weights", "1,2", "'The trainers' shared options'"),
     ("--test-recordings", "test.jsonl", "'Observability'"),
     ("--print-diagnostics", "true", "'Observability'"),
     ("--inf-check", "true", "'Observability'"),
     ("--tensorboard", "true", "'Observability'"),
     ("--profile-dir", "prof", "'Observability'"),
-    ("--freeze-modules", "cond_encoder", "'The trainers' shared options'"),
-    ("--lr-scale-rules", "cond_encoder=0.5", "'The trainers' shared options'"),
-    ("--resume-from", "checkpoint-4.pt", "'The trainers' shared options'"),
 ])
 def test_finetune_flags_not_ported_raise_and_name_their_item(flag, value, item, tmp_path):
     args = finetune.get_parser().parse_args([flag, value, "--device", "cpu",
@@ -399,10 +395,22 @@ def test_finetune_flags_not_ported_raise_and_name_their_item(flag, value, item, 
         finetune.run(args)
 
 
+@pytest.mark.parametrize("flag,value", [
+    ("--train-dls-weights", "1,2"), ("--freeze-modules", "cond_encoder"),
+    ("--lr-scale-rules", "cond_encoder=0.5"), ("--resume-from", "checkpoint-4.pt"),
+])
+def test_finetune_shared_options_are_ported(flag, value):
+    """The fine-tuner's shared options pass the check
+    (tests/test_torch_port_resume.py runs them)."""
+    finetune.check_ported(finetune.get_parser().parse_args([flag, value]), finetune._LATER)
+
+
 def test_finetune_multi_process_raises_and_needs_the_card(monkeypatch, tmp_path):
+    """A multi-process launch needs a global --batch-size that divides by
+    the world size; one process on the card needs the card."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'DDP'"):
-        finetune.run(finetune.get_parser().parse_args(["--device", "cpu"]))
+    with pytest.raises(ValueError, match="--batch-size 3 is the global batch.*world size 2"):
+        finetune.run(finetune.get_parser().parse_args(["--device", "cpu", "--batch-size", "3"]))
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = finetune.get_parser().parse_args(["--exp-dir", str(tmp_path)])

@@ -2,8 +2,8 @@
 non-finite-loss guard against the JAX package's.
 
 Tolerances: the ScaledAdam trajectory within 2e-6 of max|param| per tensor
-at every step (float32, reductions in another order) and the clipping factor
-within 1e-5; the schedules within 1e-6 relative (JAX computes them in
+at every step (float32, reductions in another order), with per-parameter lr
+scales and a frozen subtree too, and the clipping factor within 1e-5; the schedules within 1e-6 relative (JAX computes them in
 float32, the port in float64); the float64 averages within 1e-12.
 """
 
@@ -20,11 +20,22 @@ import optax
 from flow2gan_tpu.training import checkpoint as jckpt
 from flow2gan_tpu.training.optim import eden2_lr as j_eden2_lr
 from flow2gan_tpu.training.optim import eden_lr as j_eden_lr
+from flow2gan_tpu.training.optim import make_lr_scale_tree as j_make_lr_scale_tree
+from flow2gan_tpu.training.optim import parse_lr_scale_rules as j_parse_lr_scale_rules
 from flow2gan_tpu.training.optim import scaled_adam
 
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
-from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr, eden_lr, make_eden, make_eden2
+from flow2gan_tpu_torch.training.optim import (
+    ScaledAdam,
+    eden2_lr,
+    eden_lr,
+    jax_path,
+    make_eden,
+    make_eden2,
+    make_lr_scales,
+    parse_lr_scale_rules,
+)
 
 SHAPES = {
     "w1": (6, 5),
@@ -90,6 +101,96 @@ def test_scaled_adam_trajectory_matches_jax():
     assert clipped >= 5
     assert all(np.isfinite(p.detach().numpy()).all() for p in tp.values())
     assert float(topt.model_norm_threshold) == pytest.approx(float(state.model_norm_threshold), rel=1e-5)
+    assert int(topt.num_clipped) == int(state.num_clipped)
+
+
+@pytest.mark.parametrize("rules,freeze", [
+    (None, None), ("", ""), ("enc=0.5, dec/c=2.0", "cond_encoder, estimators_0"),
+    ("estimators_0/blocks_0=0.1", None), (None, "cond_encoder"), ("a=1e-3,b=0", "a"),
+])
+def test_parse_lr_scale_rules_matches_jax(rules, freeze):
+    assert parse_lr_scale_rules(rules, freeze) == j_parse_lr_scale_rules(rules, freeze)
+
+
+def test_parse_lr_scale_rules_rejects_a_rule_without_a_scale():
+    for parse in (parse_lr_scale_rules, j_parse_lr_scale_rules):
+        with pytest.raises(ValueError, match="prefix=scale"):
+            parse("enc0.5", None)
+
+
+def test_lr_scales_match_jax_leaves_on_mel_24k_tiny():
+    """Each port parameter of mel_24k_tiny (and of a pair of discriminators)
+    gets the scale of its JAX leaf: `jax_path` names every leaf of the JAX
+    tree once, and the rules compose by multiplication along the path."""
+    from flow2gan_tpu.models import discriminators as jd
+    from flow2gan_tpu_torch.models import discriminators as pd
+
+    from .test_torch_port_train import _pair
+
+    rules = j_parse_lr_scale_rules(
+        "cond_encoder=0.5,estimators_0/decoder/blocks_0=0.1,estimators_0=3,"
+        "estimators_1/decoder/blocks_1/dwconv/kernel=0.25,discriminator_1=0.2",
+        "estimators_1/decoder/blocks_0,discriminator_0/discriminators_1/convs_2")
+    jm, params, model, _ = _pair("tiny")
+    zeros = jnp.zeros((1, 1024))
+    jdisc = jd.Discriminators(periods=(2, 3), fft_sizes=(256, 128))
+    disc_params = jax.jit(jdisc.init)(jax.random.PRNGKey(0), zeros, zeros)["params"]
+    for tree, module in ((params, model), (disc_params, pd.Discriminators((2, 3), (256, 128)))):
+        theirs = {tuple(str(getattr(k, "key", k)) for k in path): leaf for path, leaf in
+                  jax.tree_util.tree_flatten_with_path(j_make_lr_scale_tree(tree, rules))[0]}
+        ours = {jax_path(name): scale
+                for name, scale in make_lr_scales(module.named_parameters(), rules).items()}
+        assert ours == theirs
+        assert len(set(ours.values())) >= 3
+
+
+def test_scaled_adam_with_lr_scales_and_a_frozen_subtree_matches_jax():
+    """300 steps with per-parameter scales (composed along the path) and a
+    frozen subtree: within 2e-6 of JAX's `lr_scale` trajectory, the clipping
+    statistic equal. A frozen tensor keeps its value bit for bit while its
+    second moment and the clipping norm still see its gradient."""
+    params0, grads = _inputs()
+    tree = lambda d: {"enc": {"w1": d["w1"], "sub": {"w2": d["w2"]}}, "b1": d["b1"],
+                      "scalar": d["scalar"], "deep": d["deep"]}
+    names = {"w1": "enc.w1", "w2": "enc.sub.w2", "b1": "b1", "scalar": "scalar", "deep": "deep"}
+    rules = j_parse_lr_scale_rules("enc=0.5,enc/sub=0.2,scalar=3", "deep")
+    opt = scaled_adam(clipping_scale=2.0)
+    jp = tree({k: jnp.asarray(v) for k, v in params0.items()})
+    lr_scale = j_make_lr_scale_tree(jp, rules)
+    state = opt.init(jp)
+
+    @jax.jit
+    def jstep(p, s, g, lr):
+        updates, s = opt.update(g, s, p, lr=lr, lr_scale=lr_scale)
+        return optax.apply_updates(p, updates), s
+
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params0.items()}
+    scales = make_lr_scales([(names[k], p) for k, p in tp.items()], rules)
+    assert scales == {"enc.w1": 0.5, "enc.sub.w2": 0.5 * 0.2, "b1": 1.0, "scalar": 3.0,
+                      "deep": 0.0}
+    topt = ScaledAdam([(names[k], p) for k, p in tp.items()], clipping_scale=2.0,
+                      lr_scales=scales)
+    flat = lambda t: {"w1": t["enc"]["w1"], "w2": t["enc"]["sub"]["w2"], "b1": t["b1"],
+                      "scalar": t["scalar"], "deep": t["deep"]}
+    for i, g in enumerate(grads):
+        jp, state = jstep(jp, state, tree({k: jnp.asarray(v) for k, v in g.items()}),
+                          j_eden2_lr(BASE_LR, i, LR_BATCHES))
+        for k, p in tp.items():
+            p.grad = torch.tensor(g[k])
+        topt.step(eden2_lr(BASE_LR, i, LR_BATCHES))
+        assert abs(float(topt.clip_scale) - float(state.clip_scale)) <= 1e-5, i
+        ref = flat(jp)
+        for k in tp:
+            theirs = np.asarray(ref[k])
+            err = np.abs(tp[k].detach().numpy() - theirs).max() / (np.abs(theirs).max() + 1e-8)
+            assert err < 2e-6, (i, k, err)
+    np.testing.assert_array_equal(tp["deep"].detach().numpy(), params0["deep"])
+    deep_eas = [g.exp_avg_sq for g in topt.groups if g.names == ["deep"]][0][0]
+    np.testing.assert_allclose(deep_eas.numpy(), np.asarray(state.exp_avg_sq["deep"]),
+                               rtol=1e-5, atol=0)
+    assert float(deep_eas.abs().max()) > 0
+    assert float(topt.model_norm_threshold) == pytest.approx(float(state.model_norm_threshold),
+                                                             rel=1e-5)
     assert int(topt.num_clipped) == int(state.num_clipped)
 
 

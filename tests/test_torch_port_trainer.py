@@ -87,16 +87,12 @@ def test_pretrain_trains_tiny_on_cpu_and_its_average_serves(tmp_path):
 
 @pytest.mark.parametrize("flag,value,slice_", [
     ("--tokenizer", "codebook.npz", "'The token family'"),
-    ("--train-dls-weights", "1,2", "'The trainers' shared options'"),
     ("--test-recordings", "test.jsonl", "'Observability'"),
     ("--save-infer-steps", "1", "'Observability'"),
     ("--print-diagnostics", "true", "'Observability'"),
     ("--inf-check", "true", "'Observability'"),
     ("--tensorboard", "true", "'Observability'"),
     ("--profile-dir", "prof", "'Observability'"),
-    ("--freeze-modules", "cond_encoder", "'The trainers' shared options'"),
-    ("--lr-scale-rules", "cond_encoder=0.5", "'The trainers' shared options'"),
-    ("--resume-from", "checkpoint-4.pt", "'The trainers' shared options'"),
 ])
 def test_flags_not_ported_raise_and_name_their_slice(flag, value, slice_):
     """Each names its ROADMAP.md item by title."""
@@ -105,10 +101,23 @@ def test_flags_not_ported_raise_and_name_their_slice(flag, value, slice_):
         pretrain.check_ported(args)
 
 
+@pytest.mark.parametrize("flag,value", [
+    ("--train-dls-weights", "1,2"), ("--freeze-modules", "cond_encoder"),
+    ("--lr-scale-rules", "cond_encoder=0.5"), ("--resume-from", "checkpoint-4.pt"),
+])
+def test_shared_options_are_ported(flag, value):
+    """The trainers' shared options pass the check (tests/test_torch_port_resume.py
+    runs them)."""
+    pretrain.check_ported(pretrain.get_parser().parse_args([flag, value]))
+
+
 def test_multi_process_runs_raise(monkeypatch):
+    """A multi-process launch runs, with a global --batch-size that must
+    divide by the world size (tests/test_torch_port_dist.py runs one); the
+    check comes before the process group is joined."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'DDP'"):
-        pretrain.check_ported(pretrain.get_parser().parse_args([]))
+    with pytest.raises(ValueError, match="--batch-size 3 is the global batch.*world size 2"):
+        pretrain.run(pretrain.get_parser().parse_args(["--batch-size", "3", "--device", "cpu"]))
 
 
 def test_no_cpu_fallback_on_the_card(monkeypatch, tmp_path):
