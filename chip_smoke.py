@@ -23,8 +23,13 @@ prints no result line):
    16 x 1.5 s), with exactly zero imaginary parts at DC and Nyquist, the
    dot-product identity <istft(s), g> = <s, adjoint(g)> on the card, its
    time, the plain adjoint's, that of `torch.stft` (the yardstick: the same
-   transform of the padded, enveloped gradient, up to the bin weights), and
-   the bound;
+   transform of the padded, enveloped gradient, up to the bin weights), the
+   bound, its share of it and the plan; at the training shapes the kernel
+   and the plain adjoint each against a float64 adjoint (numpy), the
+   kernel's error at most twice the plain one's; then both kernels, with
+   the same checks and times, at the reference's per-card batches: a
+   training step's shapes at its FM batch of 256, a GAN rollout step's at
+   its fine-tuning batch of 64;
 5. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
    mel at 1, 2 and 4 Euler steps, with the launch count of the kernel over
    that run, then the per-call time and x-real-time over timed calls, and
@@ -218,6 +223,12 @@ GAN_SHAPES = [
     (256, 128, 16, 283, 36096),
     (128, 64, 16, 565, 36096),
 ]
+# (n_fft, hop, batch, t_f, length): the same branches at the reference's
+# per-card batches, where both kernels are timed too: 256 (FM pretraining, 2
+# cards x 256) and 64 (GAN fine-tuning, one card)
+REFERENCE_BATCH_SHAPES = ([(n, h, 256, t, length) for n, h, _, t, length in TRAIN_SHAPES]
+                          + [(n, h, 64, t, length) for n, h, _, t, length in GAN_SHAPES])
+ADJOINT_F64_RATIO = 2.0  # kernel vs float64 at most this times the plain adjoint's error
 GAN_STEPS = 4  # Euler steps of the fine-tuned model
 GAN_BATCHES = 32  # 2 epochs of phase 10's corpus at batch 16
 GAN_WARMUP = 4  # D-only batches before D/G alternation
@@ -335,7 +346,7 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: b
         row.update(samples=len(times["ms"]), library_max_rel_err=lib_err,
                    bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   matmul_ops_ms=matmul_ops_ms)
+                   bound_share=max(bytes_ms, ops_ms) / row["ms"], matmul_ops_ms=matmul_ops_ms)
     return row
 
 
@@ -374,8 +385,8 @@ def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
     plan = fused.adjoint_plan(batch, t_f, n_fft, hop, sm_count)
     row = dict(n_fft=n_fft, hop=hop, batch=batch, t_f=t_f, length=length, max_abs_err=abs_err,
                max_rel_err=rel_err, dc_nyquist_max_imag=edge_imag, dot_identity_rel_err=dot_err,
-               frames_per_tile=plan.frames_per_tile, blocks=batch * plan.tiles,
-               smem_bytes=plan.smem_bytes)
+               frames_per_tile=plan.frames_per_tile, items=plan.items, blocks=plan.blocks,
+               stages=plan.stages, smem_bytes=plan.smem_bytes)
     if not (rel_err <= ISTFT_TOL and edge_imag == 0.0 and dot_err <= ISTFT_TOL):
         raise AssertionError(f"adjoint kernel disagrees with its plain version: {row}")
     if timed:
@@ -408,7 +419,47 @@ def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
         row.update({key: statistics.median(v) for key, v in times.items()})
         row.update(samples=len(times["ms"]), library_max_rel_err=lib_err,
                    bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bound_share=max(bytes_ms, ops_ms) / row["ms"])
+    return row
+
+
+def adjoint_float64(grad: np.ndarray, t_f: int, n_fft: int, hop: int) -> np.ndarray:
+    """The iSTFT's adjoint in float64 with numpy (window and envelope in
+    float64 too): G[f, k] = c_k / N rfft(w * s[f hop - N/2 ...])[k], s =
+    g / env on [0, out_len), c_k = 1 at DC and Nyquist, else 2."""
+    window = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)
+    padded_len = (t_f - 1) * hop + n_fft
+    env = np.zeros(padded_len)
+    for f in range(t_f):
+        env[f * hop : f * hop + n_fft] += window ** 2
+    out_len = min(grad.shape[-1], (t_f - 1) * hop)
+    sig = np.zeros((grad.shape[0], padded_len))
+    sig[:, n_fft // 2 : n_fft // 2 + out_len] = (grad[:, :out_len]
+                                                 / env[n_fft // 2 : n_fft // 2 + out_len])
+    frames = np.lib.stride_tricks.sliding_window_view(sig, n_fft, axis=-1)[:, ::hop][:, :t_f]
+    spec = np.fft.rfft(frames * window, axis=-1) / n_fft
+    spec[..., 1:-1] *= 2
+    return spec
+
+
+def check_adjoint_float64(n_fft, hop, batch, t_f, length) -> dict:
+    """The kernel and the plain float32 adjoint, each against float64: a
+    precision loss in the kernel's passes or twiddles shows here."""
+    gen = torch.Generator(device="cuda").manual_seed(11 * n_fft + t_f + batch)
+    grad = torch.randn(batch, length, generator=gen, device="cuda")
+    ref = adjoint_float64(grad.cpu().double().numpy(), t_f, n_fft, hop)
+    scale = max(np.abs(ref.real).max(), np.abs(ref.imag).max())
+    errs = {}
+    for name, out in [("kernel", fused.istft_adjoint_kernel(grad, t_f, n_fft, hop)),
+                      ("plain", fused.istft_adjoint_plain(grad, t_f, n_fft, hop))]:
+        diff = out.cpu().numpy().astype(np.complex128) - ref
+        errs[name] = max(np.abs(diff.real).max(), np.abs(diff.imag).max()) / scale
+    row = dict(n_fft=n_fft, hop=hop, batch=batch, t_f=t_f, length=length,
+               kernel_vs_f64=errs["kernel"], plain_vs_f64=errs["plain"],
+               limit=ADJOINT_F64_RATIO * errs["plain"])
+    if not errs["kernel"] <= ADJOINT_F64_RATIO * errs["plain"]:
+        raise AssertionError(f"adjoint kernel less precise than twice the plain adjoint: {row}")
     return row
 
 
@@ -1824,8 +1875,16 @@ def main() -> int:
     for shape in MAIN_SHAPES + TRAIN_SHAPES:
         adjoint_shapes.append(check_adjoint_shape(*shape, timed=True))
         print("adjoint shape " + json.dumps(adjoint_shapes[-1]))
+    for shape in TRAIN_SHAPES:
+        print("adjoint vs float64 " + json.dumps(check_adjoint_float64(*shape)))
     for shape in EDGE_SHAPES:
         print("adjoint edge " + json.dumps(check_adjoint_shape(*shape[:5], timed=False)))
+    reference_batches = {"istft": [], "adjoint": []}
+    for shape in REFERENCE_BATCH_SHAPES:
+        reference_batches["istft"].append(check_istft_shape(*shape, real_edges=True, timed=True))
+        print("istft reference-batch shape " + json.dumps(reference_batches["istft"][-1]))
+        reference_batches["adjoint"].append(check_adjoint_shape(*shape, timed=True))
+        print("adjoint reference-batch shape " + json.dumps(reference_batches["adjoint"][-1]))
     for shape in GAN_SHAPES:
         print("istft GAN shape " + json.dumps(check_istft_shape(*shape, real_edges=True, timed=False)))
         print("adjoint GAN shape " + json.dumps(check_adjoint_shape(*shape, timed=False)))
@@ -1895,8 +1954,8 @@ def main() -> int:
             "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
             "cli_infer_load_gan_4_steps": gan_cli_launches,
             **{k: dp_launches[i][0] for k, i in dp_paths.items()}},
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
-        "max_rel_err": max(s["max_rel_err"] for s in shapes),
+        "max_abs_err": max(s["max_abs_err"] for s in shapes + reference_batches["istft"]),
+        "max_rel_err": max(s["max_rel_err"] for s in shapes + reference_batches["istft"]),
         "ms": sum(s["ms"] for s in step),
         "plain_ms": sum(s["plain_ms"] for s in step),
         "bound_ms": sum(s["bound_ms"] for s in step),
@@ -1906,7 +1965,7 @@ def main() -> int:
         "library_ms": sum(s["library_ms"] for s in step),
         "floor_ms": floor_ms,
         "per": "one mel_24k_base Euler step at batch 16: the sum over its three branch shapes",
-        "shapes": shapes,
+        "shapes": shapes + reference_batches["istft"],
     }, {
         "name": "fused_istft_adjoint",
         "route": "cuda",
@@ -1924,8 +1983,8 @@ def main() -> int:
                              "gan_g_step_plain": remat_launches["plain"][1],
                              "gan_g_step_remat": remat_launches["remat"][1],
                              **{k: dp_launches[i][1] for k, i in dp_paths.items()}},
-        "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes),
-        "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes),
+        "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
+        "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "ms": sum(s["ms"] for s in train_step),
         "plain_ms": sum(s["plain_ms"] for s in train_step),
         "bound_ms": sum(s["bound_ms"] for s in train_step),
@@ -1934,7 +1993,7 @@ def main() -> int:
         "library_ms": sum(s["library_ms"] for s in train_step),
         "floor_ms": floor_ms,
         "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",
-        "shapes": adjoint_shapes,
+        "shapes": adjoint_shapes + reference_batches["adjoint"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,9 +45,14 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> Build:
     """Compile `csrc/<name>.cu` unless a build of this exact source exists."""
-    src = CSRC / f"{name}.cu"
+    return build_file(CSRC / f"{name}.cu")
+
+
+def build_file(src: Path) -> Build:
+    """Compile the CUDA source `src` into BUILD_DIR unless a build of this
+    exact source exists (an older version of a kernel, for an A/B)."""
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    out = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
     if out.exists():
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

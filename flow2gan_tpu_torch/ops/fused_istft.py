@@ -61,7 +61,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p
     ]
     lib.fused_istft_launch.restype = ctypes.c_int
-    lib.fused_istft_adjoint_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    lib.fused_istft_adjoint_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p
     ]
     lib.fused_istft_adjoint_launch.restype = ctypes.c_int
@@ -156,20 +156,45 @@ def tile_plan(batch: int, t_f: int, n_fft: int, hop_length: int, length: int,
 
 @dataclasses.dataclass(frozen=True)
 class AdjointPlan:
-    """How the adjoint kernel cuts its work into blocks: block (b, tile)
-    transforms frames [tile * frames_per_tile, (tile + 1) * frames_per_tile)
-    of batch entry b, the last tile fewer, and writes each of their bins
-    once. `tests/test_torch_port_train.py` mirrors the kernel on this
-    map."""
+    """How the adjoint kernel cuts its work. A work item is (b, tile): frames
+    [tile * frames_per_tile, (tile + 1) * frames_per_tile) of batch entry b,
+    the last tile fewer, item index b * tiles + tile. `blocks` persistent
+    blocks walk the items, block i taking items i, i + blocks, ...; each
+    block's producer warp copies an item's span of the waveform's gradient,
+    and the envelope's over the same samples, into one of `stages` ring
+    slots, and its ADJOINT_WARPS consumer warps transform the item's frames
+    in groups of `frames_per_warp`, group g of the block's running count
+    going to warp g % ADJOINT_WARPS. Each bin is written by one warp once.
+    `tests/test_torch_port_train.py` mirrors the kernel on this map."""
 
     n_fft: int
     hop: int
     t_f: int
+    batch: int
     frames_per_tile: int
+    blocks: int
+    stages: int
+
+    @property
+    def m_pts(self) -> int:
+        return self.n_fft // 2
+
+    @property
+    def lanes_per_frame(self) -> int:
+        """Lanes that hold one frame's M-point FFT, ADJOINT_POINTS each."""
+        return self.m_pts // ADJOINT_POINTS
+
+    @property
+    def frames_per_warp(self) -> int:
+        return 32 // self.lanes_per_frame
 
     @property
     def tiles(self) -> int:
         return -(-self.t_f // self.frames_per_tile)
+
+    @property
+    def items(self) -> int:
+        return self.batch * self.tiles
 
     @property
     def span(self) -> int:
@@ -177,21 +202,66 @@ class AdjointPlan:
         return (self.frames_per_tile - 1) * self.hop + self.n_fft
 
     @property
+    def stage_floats(self) -> int:
+        """One span in a ring slot, shifted by up to 3 samples so that it
+        lies on device memory's 16-byte grid, in whole 16-byte units. A slot
+        holds two: the gradient's and the envelope's."""
+        return -(-(self.span + 3) // 4) * 4
+
+    @property
     def smem_bytes(self) -> int:
         """The dynamic shared memory of one block (the layout at the top of
-        `fused_istft_adjoint_kernel`): the twiddles, two frame buffers, the
-        window and the tile's span of the waveform's gradient."""
-        return 4 * self.n_fft + 8 * self.frames_per_tile * self.n_fft + 4 * self.n_fft + 4 * self.span
+        `fused_istft_adjoint_kernel`): the ring's barriers, the twiddles,
+        the window, each consumer warp's exchange buffer and the ring."""
+        return _adjoint_fixed_bytes(self.n_fft) + 8 * self.stages * self.stage_floats
+
+
+# The adjoint kernel's shape (csrc/fused_istft.cu): ADJOINT_WARPS consumer
+# warps and one producer warp per block, ADJOINT_BLOCKS_PER_SM blocks per SM
+# (shared memory is split between them; 8 warps a block keep the register
+# file's four quarters even), ADJOINT_POINTS complex points of a frame in
+# each lane's registers, and a ring of 2 to ADJOINT_MAX_STAGES slots.
+ADJOINT_WARPS = 7
+ADJOINT_BLOCKS_PER_SM = 2
+ADJOINT_POINTS = 16
+ADJOINT_MAX_STAGES = 3
+SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory; each block keeps 1 KB of it
+
+
+def _adjoint_fixed_bytes(n_fft: int) -> int:
+    # two mbarriers a slot, two twiddle tables (M float2 each), the window
+    # (N float), and per consumer warp 32 * ADJOINT_POINTS float2 with one
+    # pad per 16 (bank spread)
+    return (16 * ADJOINT_MAX_STAGES + 12 * n_fft
+            + ADJOINT_WARPS * 8 * (32 * ADJOINT_POINTS * 17 // 16))
 
 
 @functools.lru_cache(maxsize=256)
-def adjoint_plan(batch: int, t_f: int, n_fft: int, hop_length: int, sm_count: int) -> AdjointPlan:
-    """Frames per tile: as many as leave BLOCKS_PER_SM blocks for each of the
-    card's `sm_count` SMs, within FRAME_BUFFER_BYTES of frame buffers. No
-    frame is transformed twice: the tiles share only what they read."""
-    max_frames = FRAME_BUFFER_BYTES // (8 * n_fft)
-    per_tile = -(-batch * t_f // (BLOCKS_PER_SM * sm_count))
-    return AdjointPlan(n_fft, hop_length, t_f, min(max(per_tile, 1), max_frames, t_f))
+def adjoint_plan(batch: int, t_f: int, n_fft: int, hop_length: int, sm_count: int,
+                 frames_per_tile: Optional[int] = None) -> AdjointPlan:
+    """Frames per tile: one group for each consumer warp, so that a block
+    takes an item in one step, or fewer where that leaves blocks idle (a
+    small batch: then about one item for each block), evened out over the
+    tiles of a batch entry, in whole warp groups, and no more than lets two
+    ring slots fit; then as many slots as fit, up to ADJOINT_MAX_STAGES, and
+    one persistent block per item up to ADJOINT_BLOCKS_PER_SM per SM.
+    `frames_per_tile` overrides the rule (the tests' forced tile sizes). No
+    frame is transformed twice: tiles share only what they read."""
+    budget = SM_SHARED_BYTES // ADJOINT_BLOCKS_PER_SM - 1024
+    plan = AdjointPlan(n_fft, hop_length, t_f, batch, 1, 1, 1)
+    per_warp = plan.frames_per_warp
+    ring = budget - _adjoint_fixed_bytes(n_fft)
+    fit = (ring // 16 - 3 - n_fft) // hop_length + 1  # frames whose two spans fit twice
+    if frames_per_tile is None:
+        target_blocks = ADJOINT_BLOCKS_PER_SM * sm_count
+        most = min(ADJOINT_WARPS * per_warp, fit // per_warp * per_warp,
+                   max(-(-batch * t_f // target_blocks), per_warp))
+        tiles = -(-t_f // most)
+        frames_per_tile = -(-(-(-t_f // tiles)) // per_warp) * per_warp
+    plan = dataclasses.replace(plan, frames_per_tile=frames_per_tile)
+    stages = min(ADJOINT_MAX_STAGES, ring // (8 * plan.stage_floats))
+    return dataclasses.replace(plan, blocks=min(plan.items, ADJOINT_BLOCKS_PER_SM * sm_count),
+                               stages=max(stages, 2))
 
 
 def _check_cuda(x: torch.Tensor, name: str, dtype: torch.dtype, n_fft: int, hop_length: int):
@@ -253,8 +323,8 @@ def istft_adjoint_kernel(grad: torch.Tensor, t_f: int, n_fft: int, hop_length: i
     out = torch.empty(batch, t_f, n_fft // 2 + 1, dtype=torch.complex64, device=grad.device)
     err = _library().fused_istft_adjoint_launch(
         grad.data_ptr(), tables.data_ptr(), env.data_ptr(), torch.view_as_real(out).data_ptr(),
-        batch, t_f, n_fft, hop_length, length, plan.tiles, plan.frames_per_tile,
-        plan.smem_bytes, torch.cuda.current_stream(grad.device).cuda_stream,
+        batch, t_f, n_fft, hop_length, length, plan.frames_per_tile, plan.blocks, plan.stages,
+        plan.stage_floats, plan.smem_bytes, torch.cuda.current_stream(grad.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"fused_istft_adjoint launch failed: cudaError {err}")

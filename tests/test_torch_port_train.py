@@ -37,7 +37,7 @@ from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops import mel as pmel
 from flow2gan_tpu_torch.ops import stft as pstft
 
-from .test_torch_port_ops import H100_SMS, _stockham_inverse
+from .test_torch_port_ops import H100_SMS
 
 ADJOINT_CASES = [  # (n_fft, hop, t_f, length)
     (512, 256, 20, None), (256, 128, 33, 5000), (128, 64, 33, 1000), (64, 32, 17, None),
@@ -84,66 +84,215 @@ def test_istft_adjoint_dot_product_identity(n_fft, hop, t_f, length):
     assert abs(lhs - rhs) <= 1e-5 * (np.abs(y * g).sum() + 1e-12)
 
 
-def _adjoint_form(g: np.ndarray, t_f: int, plan: fused.AdjointPlan) -> np.ndarray:
-    """The adjoint kernel's arithmetic in numpy, tile by tile: the tile's
-    span of g / env (zero outside [0, out_len)), each frame windowed (1/N in
-    the window), packed and conjugated, `_stockham_inverse`, then the
-    Hermitian unpack with zero imaginary parts at DC and Nyquist."""
-    n_fft, hop, m = plan.n_fft, plan.hop, plan.n_fft // 2
+def _omega(e: int, radix: int, c16) -> np.complex64:
+    """e^{-2 pi i e / radix} as the kernel builds it from the table's cos/sin
+    of 2 pi / 16, 2 pi 2/16, 2 pi 3/16 (c16): quarter turns are exact."""
+    q, r = divmod(e * 16 // radix, 4)
+    c, s = [(np.float32(1), np.float32(0)), *c16][r]
+    for _ in range(q % 4):
+        c, s = -s, c
+    return np.complex64(c - 1j * s)
+
+
+def _dft(x: list, c16) -> list:
+    """The kernel's in-register forward DFT of radix 2, 4, 8 or 16: radix 8
+    and 16 as 2 x 4 and 4 x 4, inner radix 4 over x[n1 + r1 n2], the
+    twiddle e^{-2 pi i n1 k2 / radix}, outer radix r1, out[k2 + 4 k1]."""
+    radix = len(x)
+    if radix == 2:
+        return [x[0] + x[1], x[0] - x[1]]
+    if radix == 4:
+        a, b, c, d = x
+        return [(a + c) + (b + d), (a - c) - 1j * (b - d), (a + c) - (b + d), (a - c) + 1j * (b - d)]
+    r1 = radix // 4
+    inner = [_dft([x[n1 + r1 * n2] for n2 in range(4)], c16) for n1 in range(r1)]
+    out = [None] * radix
+    for k2 in range(4):
+        col = [inner[n1][k2] * _omega(n1 * k2, radix, c16) if n1 * k2 else inner[n1][k2]
+               for n1 in range(r1)]
+        for k1, v in enumerate(_dft(col, c16)):
+            out[k2 + 4 * k1] = v
+    return out
+
+
+def _register_fft(z: np.ndarray, n_fft: int) -> np.ndarray:
+    """The adjoint kernel's forward M-point FFT (M = n_fft/2) of each row of
+    z, as a warp computes it: lane jl < L = M/16 of a frame holds z[jl + L p]
+    in register p < 16. Stockham passes, radix 16 first, then the remainder
+    radix (2, 4 or 8): a lane's butterflies t = jl + L i take registers
+    i + k * 16/radix; output j, times e^{-2 pi i j base / M} (base = s (t div
+    s), from the table), goes through the warp's exchange buffer to
+    position radix * base + t mod s + j s, and is read back as z[jl + L p]."""
+    twiddles, _ = fused.kernel_tables_np(n_fft)
+    half = (twiddles[:, 0] + 1j * twiddles[:, 1]).astype(np.complex64)
+    circle = np.concatenate([half, -half])  # e^{2 pi i x / N}, x < N
+    c16 = [tuple(twiddles[e * n_fft // 16]) for e in (1, 2, 3)]
+    m_pts, points = n_fft // 2, fused.ADJOINT_POINTS
+    lanes = m_pts // points
+    log2m = int(np.log2(m_pts))
+    radices = [16] * (log2m // 4) + ([1 << log2m % 4] if log2m % 4 else [])
+    jl = np.arange(lanes)
+    regs = [z[..., jl + lanes * p] for p in range(points)]
+    s = 1
+    for radix in radices:
+        per_lane = points // radix
+        exchange = np.full_like(z, np.nan)
+        for i in range(per_lane):
+            t = jl + lanes * i
+            base = s * (t // s)
+            ys = _dft([regs[i + k * per_lane] for k in range(radix)], c16)
+            for j, y in enumerate(ys):
+                exchange[..., radix * base + t % s + j * s] = (
+                    y if j == 0 else y * np.conj(circle[2 * j * base % n_fft]))
+        regs = [exchange[..., jl + lanes * p] for p in range(points)]
+        s *= radix
+    assert s == m_pts and not np.isnan(exchange).any()
+    return exchange
+
+
+def _slot_span(first: int, idx0: int, count: int, out_len: int):
+    """(q, lo, hi, bulk_lo, bulk_hi) of a span in a ring slot (the kernel's
+    `slot_span`): slot[x] holds element idx0 + x - q of an array whose element
+    0 sits at `first` on the 16-byte grid; [lo, hi) is the part inside [0,
+    out_len), [bulk_lo, bulk_hi) its whole 16-byte units."""
+    q = (first + idx0) % 4
+    lo = max(idx0, 0) - idx0 + q
+    hi = max(min(idx0 + count, out_len) - idx0 + q, lo)
+    bulk_lo = min(-(-lo // 4) * 4, hi)
+    bulk_hi = max(hi // 4 * 4, bulk_lo)
+    assert bulk_lo == bulk_hi or bulk_lo % 4 == bulk_hi % 4 == 0
+    assert bulk_lo - lo < 4 and hi - bulk_hi < 4
+    return q, lo, hi, bulk_lo, bulk_hi
+
+
+def _adjoint_form(g: np.ndarray, plan: fused.AdjointPlan, offset: int = 0) -> np.ndarray:
+    """The adjoint kernel in numpy on its work map. Each block walks its
+    items; the producer copies the item's in-range span of g, and the
+    envelope's, into a ring slot, each shifted onto the 16-byte grid (a
+    bulk copy of whole 16-byte units, a head and a tail of under 4; offset:
+    g's first element's place on that grid); the consumer warps divide the
+    span by the envelope there, each sample once, zero outside [0, out_len);
+    they take the item's groups of frames_per_warp frames, group g of the
+    block's running count to warp g % ADJOINT_WARPS, and pack each frame
+    from the slot times the window (1/N in it), z[m] = u[2m] + i u[2m+1];
+    then `_register_fft` and the Hermitian unpack in pairs: bins k and M - k
+    (k < M/2) from Z[k] and Z[M - k], DC and Nyquist (real) from Z[0], and
+    bin M/2. Every bin is written once."""
+    n_fft, hop, m, t_f = plan.n_fft, plan.hop, plan.m_pts, plan.t_f
     twiddles, window = fused.kernel_tables_np(n_fft)
-    b, length = g.shape
+    batch, length = g.shape
     out_len = min(length, (t_f - 1) * hop)
     env = pstft._istft_envelope(t_f, n_fft, hop)
-    out = np.full((b, t_f, m + 1), np.nan, np.complex64)
-    k = np.arange(1, m)
+    flat = g.ravel()
+    owner = np.full((batch, t_f), -1)
+    u = np.zeros((batch, t_f, n_fft), np.float32)
+    for block in range(plan.blocks):
+        groups = 0
+        for w in range(block, plan.items, plan.blocks):
+            b, tile = divmod(w, plan.tiles)
+            f0 = tile * plan.frames_per_tile
+            nc = min(plan.frames_per_tile, t_f - f0)
+            idx0, count = f0 * hop - m, (nc - 1) * hop + n_fft
+            slots = []
+            for first, src in [(offset + b * length, flat[b * length : (b + 1) * length]), (0, env)]:
+                q, lo, hi, _, _ = _slot_span(first, idx0, count, out_len)
+                slot = np.full(plan.stage_floats, np.nan, np.float32)
+                slot[lo:hi] = src[idx0 - q + np.arange(lo, hi)]
+                slots.append(slot[q : q + count])
+            sig, envs = slots
+            idx = idx0 + np.arange(count)
+            ok = (idx >= 0) & (idx < out_len)
+            assert not np.isnan(sig[ok]).any() and not np.isnan(envs[ok]).any()
+            sig = np.where(ok, sig / np.where(ok, envs, 1), 0).astype(np.float32)
+            for gi in range(-(-nc // plan.frames_per_warp)):
+                warp = (groups + gi) % fused.ADJOINT_WARPS
+                for lf in range(gi * plan.frames_per_warp, min((gi + 1) * plan.frames_per_warp, nc)):
+                    assert owner[b, f0 + lf] == -1
+                    owner[b, f0 + lf] = block * fused.ADJOINT_WARPS + warp
+                    u[b, f0 + lf] = sig[lf * hop + np.arange(n_fft)] * window
+            groups += -(-nc // plan.frames_per_warp)
+    assert (owner >= 0).all()
+    z = _register_fft((u[..., 0::2] + 1j * u[..., 1::2]).astype(np.complex64), n_fft)
+    k = np.arange(1, m // 2 + 1)
     w = (twiddles[k, 0] - 1j * twiddles[k, 1]).astype(np.complex64)  # e^{-2 pi i k/N}
-    for tile in range(plan.tiles):
-        f0 = tile * plan.frames_per_tile
-        nc = min(plan.frames_per_tile, t_f - f0)
-        idx = f0 * hop - m + np.arange((nc - 1) * hop + n_fft)
-        ok = (idx >= 0) & (idx < out_len)
-        sig = np.zeros((b, idx.size), np.float32)
-        sig[:, ok] = g[:, idx[ok]] / env[idx[ok]]
-        u = np.stack([sig[:, j * hop : j * hop + n_fft] for j in range(nc)], axis=1) * window
-        res = _stockham_inverse((u[..., 0::2] - 1j * u[..., 1::2]).astype(np.complex64), n_fft)
-        a, c = np.conj(res[..., k]), res[..., m - k]  # Z[k], conj Z[M - k]
-        out[:, f0 : f0 + nc, 1:m] = (a + c) - 1j * (w * (a - c))
-        out[:, f0 : f0 + nc, 0] = res[..., 0].real - res[..., 0].imag
-        out[:, f0 : f0 + nc, m] = res[..., 0].real + res[..., 0].imag
+    a, c = z[..., k], np.conj(z[..., m - k])
+    total, wd = a + c, w * (a - c)  # G[k] = total - i wd
+    out = np.full((batch, t_f, m + 1), np.nan, np.complex64)
+    out[..., k] = (total.real + wd.imag) + 1j * (total.imag - wd.real)
+    # e^{-2 pi i (M-k)/N} = -conj w, so G[M - k] = conj(total) - i conj(wd)
+    out[..., m - k[:-1]] = (total.real - wd.imag)[..., :-1] + 1j * (-total.imag - wd.real)[..., :-1]
+    out[..., 0] = z[..., 0].real + z[..., 0].imag
+    out[..., m] = z[..., 0].real - z[..., 0].imag
     return out
+
+
+def test_register_fft_matches_numpy():
+    """The in-register passes give the forward FFT at every supported N."""
+    rng = np.random.RandomState(0)
+    for n_fft in fused.N_FFTS:
+        z = _complex(rng, 5, n_fft // 2)
+        ref = np.fft.fft(z.astype(np.complex128))
+        assert np.abs(_register_fft(z, n_fft) - ref).max() < 5e-6 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("n_fft,hop,t_f,length", ADJOINT_CASES)
 @pytest.mark.parametrize("frames_per_tile", [None, 1, 5])
 def test_adjoint_kernel_formulation_matches_plain(n_fft, hop, t_f, length, frames_per_tile):
-    """The adjoint kernel's tiles, FFT form and unpack reproduce the plain
-    adjoint, at the tile plan of the card and at forced tile sizes; DC and
-    Nyquist come out real."""
+    """The adjoint kernel's work map, ring slots, register FFT and unpack
+    reproduce the plain adjoint, at the card's plan and at forced tile sizes
+    on one or two SMs (so that blocks walk many items and the ring wraps),
+    with g off the 16-byte grid; DC and Nyquist come out real."""
     rng = np.random.RandomState(n_fft + t_f)
     length_ = (t_f - 1) * hop if length is None else length
     g = rng.randn(3, length_).astype(np.float32)
-    plan = fused.adjoint_plan(3, t_f, n_fft, hop, H100_SMS)
-    if frames_per_tile is not None:
-        plan = fused.AdjointPlan(n_fft, hop, t_f, min(frames_per_tile, t_f))
-    ours = _adjoint_form(g, t_f, plan)
+    sm_count = {None: H100_SMS, 1: 1, 5: 2}[frames_per_tile]
+    plan = fused.adjoint_plan(3, t_f, n_fft, hop, sm_count, frames_per_tile)
+    ours = _adjoint_form(g, plan, offset=t_f % 4)
     ref = pstft.istft_adjoint(torch.from_numpy(g), t_f, n_fft, hop).numpy()
     assert np.isfinite(ours).all()
     assert _rel_err(ours, ref) < 5e-6 or not np.abs(ref).max()
     assert not ours[..., [0, -1]].imag.any()
 
 
-@pytest.mark.parametrize("n_fft,hop,t_f", [
-    (512, 256, 95), (256, 128, 189), (128, 64, 377), (1024, 512, 88), (512, 256, 175),
-    (256, 128, 349),
-])
-def test_adjoint_plan_fills_the_card_at_main_shapes(n_fft, hop, t_f):
-    """Batch 16 at the main-path shapes: at least two blocks for each SM,
-    every frame in exactly one tile, four blocks' shared memory on an SM."""
-    plan = fused.adjoint_plan(16, t_f, n_fft, hop, H100_SMS)
-    assert 16 * plan.tiles >= 2 * H100_SMS
-    assert (plan.tiles - 1) * plan.frames_per_tile < t_f <= plan.tiles * plan.frames_per_tile
-    assert 8 * n_fft * plan.frames_per_tile <= fused.FRAME_BUFFER_BYTES
-    assert plan.smem_bytes <= 227 * 1024 // 4
+# (n_fft, hop, batch, t_f): the main path's shapes at batch 16, a training
+# step's at the reference's FM batch per card (256), a GAN rollout step's at
+# its fine-tuning batch (64)
+PLAN_SHAPES = [
+    (512, 256, 16, 95), (256, 128, 16, 189), (128, 64, 16, 377), (1024, 512, 16, 88),
+    (512, 256, 16, 175), (256, 128, 16, 349),
+    (512, 256, 256, 141), (256, 128, 256, 282), (128, 64, 256, 563),
+    (512, 256, 64, 142), (256, 128, 64, 283), (128, 64, 64, 565),
+]
+
+
+@pytest.mark.parametrize("n_fft,hop,batch,t_f", PLAN_SHAPES)
+def test_adjoint_plan_covers_every_frame_once(n_fft, hop, batch, t_f):
+    """Every (b, frame) lies in exactly one work item, the persistent blocks
+    are at most ADJOINT_BLOCKS_PER_SM per SM, each block takes 2 to
+    ADJOINT_MAX_STAGES ring slots within the block limit, that many blocks
+    fit on an SM, and a tile is at most one group for each consumer warp:
+    the fewest tiles that allows where the work fills the blocks, smaller
+    ones at a small batch."""
+    plan = fused.adjoint_plan(batch, t_f, n_fft, hop, H100_SMS)
+    seen = np.zeros((batch, t_f), int)
+    for block in range(plan.blocks):
+        for w in range(block, plan.items, plan.blocks):
+            b, tile = divmod(w, plan.tiles)
+            seen[b, tile * plan.frames_per_tile : (tile + 1) * plan.frames_per_tile] += 1
+    assert (seen == 1).all()
+    assert plan.blocks <= H100_SMS * fused.ADJOINT_BLOCKS_PER_SM
+    assert plan.blocks == min(plan.items, H100_SMS * fused.ADJOINT_BLOCKS_PER_SM)
+    assert 2 <= plan.stages <= fused.ADJOINT_MAX_STAGES
+    assert plan.smem_bytes <= 227 * 1024
+    assert fused.ADJOINT_BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= fused.SM_SHARED_BYTES
+    assert plan.frames_per_tile % plan.frames_per_warp == 0
+    assert plan.frames_per_tile <= fused.ADJOINT_WARPS * plan.frames_per_warp
+    most, capacity = fused.ADJOINT_WARPS * plan.frames_per_warp, H100_SMS * fused.ADJOINT_BLOCKS_PER_SM
+    if batch * t_f >= most * capacity:  # enough work: a full group for each consumer warp
+        assert plan.tiles == -(-t_f // most)
+    else:  # a small batch: smaller tiles, so that most blocks have an item
+        assert 2 * plan.items > capacity
+    assert plan.frames_per_warp * plan.m_pts == 32 * fused.ADJOINT_POINTS
 
 
 # --------------------------------------------------- the iSTFT's autograd
