@@ -110,7 +110,31 @@ prints no result line):
    resumed run within 4 times the straight runs' own spread, the D/G
    alternation and the sampler continued, the frozen tensors bitwise
    unchanged;
-18. the `kernels` JSON line (each kernel's launches on every path, the
+18. the token family at full width (token_24k_base: mel_24k_base's
+   generator with a 1024 x 256 token embedding in front of the cond
+   encoder):
+   a. `bin/train_tokenizer.py` (vocab 1024, mels on the card) on phase 10's
+      corpus, and its tokens on the card against the CPU tokenizer: equal
+      but on near-ties (best two scores within 1e-5 of max|score|), which
+      are under 1% of the frames and counted;
+   b. `get_model("token_24k_base", tokenizer=...)` on a (16, 94) array of
+      ids at 1, 2 and 4 steps: launches (3 per Euler step), then ms per
+      call and x-real-time in turns with mel_24k_base's, one 1-step call
+      of each by device time; card against CPU through infer_from_noise;
+      `reconstruct` from a waveform;
+   c. the FM loss and gradients card against CPU at batch 2 x 1 s: phase
+      9's limits, but each tensor's 1e-2 plus four times how far the CPU's
+      gradient of it moves when the parameters and x0 move by one float32
+      ulp (as 15c holds the G side; the embedding's gradient is among the
+      tensors), and (3, 3) launches;
+   d. `bin/pretrain.py --tokenizer` for 8 steps at batch 16 x 1.5 s: every
+      step's launches, losses, step ms, audio per second, peak memory; one
+      step's device time by family;
+   e. `bin/finetune.py --tokenizer` at 4 Euler steps from d's average, 8
+      batches: every step's launches (D 12; G 12 and 12), losses;
+   f. `bin/infer --tokenizer`, and `bin/infer_dir` with `--tokenizer` on
+      wavs and `--tokens true` on their ids, whole and chunked;
+19. the `kernels` JSON line (each kernel's launches on every path, the
    data-parallel ones per rank), then the card line and the result line.
 """
 
@@ -136,7 +160,14 @@ import torch.multiprocessing
 
 from flow2gan_tpu_torch import get_model
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
-from flow2gan_tpu_torch.bin import finetune, infer, infer_dir, pretrain, save_averaged_model
+from flow2gan_tpu_torch.bin import (
+    finetune,
+    infer,
+    infer_dir,
+    pretrain,
+    save_averaged_model,
+    train_tokenizer,
+)
 from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.data import native_audio
 from flow2gan_tpu_torch.data.audio_io import read_wav, write_wav
@@ -154,6 +185,7 @@ from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import envelope, hann_window_np
+from flow2gan_tpu_torch.ops.tokenizer import MelKMeansTokenizer
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.parallel.dist import Shard
 from flow2gan_tpu_torch.training import checkpoint as ckpt
@@ -178,6 +210,7 @@ CARD_VS_CPU_TOL = 1e-4  # whole model, relative to max|CPU|
 LOSS_TOL = 1e-6  # relative
 GRAD_TOL = 2.5e-4  # |grad_card - grad_cpu| / |grad_cpu| over all parameters
 GRAD_TENSOR_TOL = 1e-2  # the same for each parameter tensor
+GRAD_F64_RATIO = 2.0  # a tensor over 1e-2 needs card vs float64 <= 1e-2 and <= this times CPU's
 ROOT = Path(__file__).resolve().parent / "build"
 TRACE_DIR = ROOT / "traces"  # read, then deleted
 TIMED_SAMPLES = 25
@@ -651,29 +684,55 @@ def voiced(rng: np.random.RandomState, batch: int, length: int, sr: int = 24000)
     return out
 
 
-def grads_card_vs_cpu(card: str) -> None:
-    """The FM loss and every parameter gradient of full mel_24k_base at batch
-    2 x 1 s, card against CPU, with the same weights, t, x0, gates and branch
-    weights; the step goes through both kernels three times each."""
-    cfg = get_generator_config("mel_24k_base")
+def _rel_per_tensor(a: dict, b: dict) -> dict:
+    return {k: ((a[k] - b[k]).norm() / (b[k].norm() + 1e-300)).item() for k in b}
+
+
+def _rel_all(a: dict, b: dict) -> float:
+    return (math.sqrt(sum((a[k] - b[k]).norm().item() ** 2 for k in b))
+            / math.sqrt(sum(b[k].norm().item() ** 2 for k in b)))
+
+
+def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5,
+                      float64: bool = False) -> tuple:
+    """The FM loss and every parameter gradient of a full-width config
+    (mel_24k_base, or token_24k_base on random token ids) at batch 2 x 1 s,
+    card against CPU, with the same weights, t, x0, gates and branch
+    weights drawn from `seed`; the step goes through both kernels three
+    times each. Returns the launches (forward, adjoint).
+
+    With `float64` the CPU also runs the step in float64 (the same weights
+    and inputs, widened), the exact gradient as far as float32 can tell,
+    and a tensor whose card-vs-CPU error passes GRAD_TENSOR_TOL still
+    passes if the card holds that limit against the exact gradient and is
+    as near it as the CPU: its error against float64 at most
+    GRAD_TENSOR_TOL and at most GRAD_F64_RATIO times the CPU's. A gradient
+    that nearly cancels (a BiasNorm's log_scale) can put the CPU's float32
+    far from the exact one. The loss and the whole gradient keep their
+    limits."""
+    cfg = get_generator_config(model_name)
     cpu = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).cuda()
-    rng = np.random.RandomState(5)
+    rng = np.random.RandomState(seed)
     batch, frames = 2, 94
     length = frames * 256
-    inputs = {"cond": rng.randn(batch, 100, frames).astype(np.float32),
-              "audio": voiced(rng, batch, length),
+    cond = (rng.randint(0, cfg.vocab_size, (batch, frames)) if model_name.startswith("token")
+            else rng.randn(batch, 100, frames).astype(np.float32))
+    inputs = {"cond": cond, "audio": voiced(rng, batch, length),
               "lens": np.asarray([length, length - 3000])}
     x0 = (0.1 * rng.randn(batch, length)).astype(np.float32)
     t = rng.rand(batch).astype(np.float32)
     gates = (rng.rand(cpu.num_limiters) < 0.6).astype(np.float32)
     weight = branch_dropout_weight(torch.tensor([1, 0]), torch.tensor([[True], [False]]), 3)
 
-    def run(model, device):
-        draws = FMDraws(torch.from_numpy(x0).to(device), torch.from_numpy(t).to(device),
-                        gates=torch.from_numpy(gates).to(device), branch_weight=weight.to(device))
-        loss = model(*(torch.from_numpy(inputs[k]).to(device) for k in ("cond", "audio", "lens")),
-                     draws)
+    def run(model, device, dtype=torch.float32):
+        model.zero_grad(set_to_none=True)
+        draws = FMDraws(torch.from_numpy(x0).to(device, dtype), torch.from_numpy(t).to(device, dtype),
+                        gates=torch.from_numpy(gates).to(device, dtype),
+                        branch_weight=weight.to(device, dtype))
+        args = [torch.from_numpy(inputs[k]).to(device) for k in ("cond", "audio", "lens")]
+        args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        loss = model(*args, draws)
         loss.backward()
         return loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()}
 
@@ -684,22 +743,50 @@ def grads_card_vs_cpu(card: str) -> None:
         raise AssertionError(f"a training step launched (forward, adjoint) {launches}, expected (3, 3)")
     loss_cpu, g_cpu = run(cpu, "cpu")
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
-    per = {k: ((g_gpu[k] - g_cpu[k]).norm() / (g_cpu[k].norm() + 1e-300)).item() for k in g_cpu}
-    total = (math.sqrt(sum((g_gpu[k] - g_cpu[k]).norm().item() ** 2 for k in g_cpu))
-             / math.sqrt(sum(g_cpu[k].norm().item() ** 2 for k in g_cpu)))
-    worst = max(per, key=per.get)
+    per = _rel_per_tensor(g_gpu, g_cpu)
+    total = _rel_all(g_gpu, g_cpu)
+    passes = {k: per[k] <= GRAD_TENSOR_TOL for k in per}
     err_sq = {k: (g_gpu[k] - g_cpu[k]).norm().item() ** 2 for k in g_cpu}
     largest = max(err_sq, key=err_sq.get)
-    print("grads card vs CPU " + json.dumps({
-        "config": "mel_24k_base", "batch": batch, "length": length, "tensors": len(per),
+    worst = max(per, key=per.get)
+    report = {
+        "config": model_name, "seed": seed, "batch": batch, "length": length, "tensors": len(per),
         "loss_card": loss_gpu, "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
         "grad_rel_err_all": total, "grad_rel_err_worst_tensor": per[worst], "worst_tensor": worst,
         "grad_rel_err_median_tensor": statistics.median(per.values()),
         "largest_error_tensor": largest, "its_share_of_the_error": err_sq[largest] / max(sum(err_sq.values()), 1e-300),
-        "launches_forward_adjoint": launches, "card": card}))
+        "launches_forward_adjoint": launches, "card": card}
+    if float64:
+        exact = copy.deepcopy(cpu).double()
+        loss64, g64 = run(exact, "cpu", torch.float64)
+        del exact
+        card64, cpu64 = _rel_per_tensor(g_gpu, g64), _rel_per_tensor(g_cpu, g64)
+        passes = {k: passes[k] or card64[k] <= min(GRAD_TENSOR_TOL, GRAD_F64_RATIO * cpu64[k])
+                  for k in per}
+        over = sorted((k for k in per if per[k] > GRAD_TENSOR_TOL), key=lambda k: -per[k])
+        far = sorted(per, key=lambda k: -card64[k])[:5]
+        report.update({
+            "loss_card_vs_f64": abs(loss_gpu - loss64) / abs(loss64),
+            "loss_cpu_vs_f64": abs(loss_cpu - loss64) / abs(loss64),
+            "grad_all_card_vs_f64": _rel_all(g_gpu, g64), "grad_all_cpu_vs_f64": _rel_all(g_cpu, g64),
+            "median_tensor_card_vs_f64": statistics.median(card64.values()),
+            "median_tensor_cpu_vs_f64": statistics.median(cpu64.values()),
+            "f64_ratio_limit": GRAD_F64_RATIO,
+            "tensors_over_grad_tensor_tol": {k: {"card_vs_cpu": per[k], "card_vs_f64": card64[k],
+                                                 "cpu_vs_f64": cpu64[k]} for k in over},
+            "farthest_from_f64_on_the_card": {k: {"card_vs_f64": card64[k], "cpu_vs_f64": cpu64[k]}
+                                              for k in far}})
+        if "token_embed.weight" in per:
+            report["token_embed_card_vs_f64"] = card64["token_embed.weight"]
+            report["token_embed_cpu_vs_f64"] = cpu64["token_embed.weight"]
+    if "token_embed.weight" in per:
+        report["token_embed_rel_err"] = per["token_embed.weight"]
+    print("grads card vs CPU " + json.dumps(report))
     finite = all(torch.isfinite(g).all() for g in g_gpu.values())
-    if not (finite and loss_err <= LOSS_TOL and total <= GRAD_TOL and per[worst] <= GRAD_TENSOR_TOL):
-        raise AssertionError("card and CPU gradients disagree")
+    if not (finite and loss_err <= LOSS_TOL and total <= GRAD_TOL and all(passes.values())):
+        raise AssertionError("card and CPU gradients disagree: "
+                             f"{sorted(k for k in passes if not passes[k])}")
+    return launches
 
 
 def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
@@ -737,15 +824,18 @@ def device_families(fn, trace: Path = None, family=None, kernels: list = None):
     return families, (gemm_ms_by_dtype(prof, trace) if trace is not None else None)
 
 
-def profile_train_step(card: str, step_ms: float, compute_dtype=None) -> None:
-    """The device time of one mel_24k_base training step (batch 16 x 1.5 s)
-    by family, the GEMMs by input dtype, the optimizer's part measured alone,
+def profile_train_step(card: str, step_ms: float, compute_dtype=None, tokenizer=None) -> None:
+    """The device time of one mel_24k_base training step (batch 16 x 1.5 s),
+    or with `tokenizer` one token_24k_base step conditioned on its ids, by
+    family, the GEMMs by input dtype, the optimizer's part measured alone,
     and the busy share against the trainer's median step."""
-    cfg = get_generator_config("mel_24k_base")
+    model_name = "token_24k_base" if tokenizer is not None else "mel_24k_base"
+    cfg = get_generator_config(model_name)
     cfg["compute_dtype"] = compute_dtype
-    label = compute_dtype or "float32"
+    label = (compute_dtype or "float32") + ("_token" if tokenizer is not None else "")
     model = init_weights(build_generator(cfg), torch.Generator().manual_seed(1)).cuda()
-    mel_fn = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100).cuda()
+    mel_fn = (tokenizer if tokenizer is not None else LogMelSpectrogram(
+        sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100)).cuda()
     optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
     audio = torch.from_numpy(voiced(np.random.RandomState(11), 16, 36000)).cuda()
     batch = {"audio": audio, "audio_lens": torch.full((16,), 36000, device="cuda")}
@@ -780,7 +870,8 @@ def profile_train_step(card: str, step_ms: float, compute_dtype=None) -> None:
     step_fams[key] = step_fams.get(key, 0.0) - opt_ms
     step_fams["optimizer (ScaledAdam, measured alone)"] = opt_ms
     print(f"profile train step {label} " + json.dumps({
-        "config": "mel_24k_base", "compute_dtype": label, "batch": 16, "seconds_per_item": 1.5,
+        "config": model_name, "compute_dtype": compute_dtype or "float32", "batch": 16,
+        "seconds_per_item": 1.5,
         "device_ms": total, "gemm_by_input_dtype": gemms,
         "step_ms_median_unprofiled": step_ms, "device_busy_share": total / step_ms,
         "step_ms_median_without_loader": statistics.median(wall),
@@ -1224,6 +1315,43 @@ def gan_grads_card_vs_cpu(card: str) -> dict:
     return launches
 
 
+def run_counting_steps(module, factory: str, args):
+    """`module.run(args)` with each step that `module.<factory>` makes
+    counting its kernel launches: `factory` is "make_gan_steps" (its D, G
+    and eval steps) or "fm_train_step" (the step itself). Returns the run's
+    history and one (step kind, forward launches, adjoint launches) per
+    call."""
+    calls = []
+    original = getattr(module, factory)
+
+    def wrap(kind, step):
+        def run(*args, **kwargs):
+            f, b = fused.launches, fused.adjoint_launches
+            out = step(*args, **kwargs)
+            calls.append((kind, fused.launches - f, fused.adjoint_launches - b))
+            return out
+        return run
+
+    def counted(*a, **kw):
+        return tuple(wrap(k, s) for k, s in zip(("D", "G", "eval"), original(*a, **kw)))
+
+    setattr(module, factory, counted if factory == "make_gan_steps" else wrap("FM", original))
+    try:
+        return module.run(args), calls
+    finally:
+        setattr(module, factory, original)
+
+
+def launches_by_kind(calls) -> dict:
+    """Each step kind's launches (forward, adjoint), summed over the
+    `calls` that `run_counting_steps` read."""
+    out = {}
+    for kind, f, b in calls:
+        was = out.get(kind, (0, 0))
+        out[kind] = (was[0] + f, was[1] + b)
+    return out
+
+
 def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
     """`bin/finetune.py` on mel_24k_base at 4 Euler steps from the averaged FM
     model on phase 10's corpus; checks the launches of every step and
@@ -1237,27 +1365,10 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
         "--device", "cuda", "--exp-dir", str(exp), "--generator-model-path", str(averaged),
         "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
-    calls = []  # (step kind, forward launches, adjoint launches), one per call
-    make_steps = finetune.make_gan_steps
-
-    def counted(*a, **kw):
-        def wrap(kind, step):
-            def run(*args, **kwargs):
-                f, b = fused.launches, fused.adjoint_launches
-                out = step(*args, **kwargs)
-                calls.append((kind, fused.launches - f, fused.adjoint_launches - b))
-                return out
-            return run
-        return tuple(wrap(k, s) for k, s in zip(("D", "G", "eval"), make_steps(*a, **kw)))
-
     torch.cuda.reset_peak_memory_stats()
     fused.launches = fused.adjoint_launches = 0
-    finetune.make_gan_steps = counted
     start = time.perf_counter()
-    try:
-        history = finetune.run(args)
-    finally:
-        finetune.make_gan_steps = make_steps
+    history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1266,9 +1377,9 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
     expected = ["D"] * GAN_WARMUP + ["G", "D"] * ((GAN_BATCHES - GAN_WARMUP) // 2)
     per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G", "eval")}
     counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
+    by_kind = launches_by_kind(calls)
     launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches,
-                "d_steps": counts["D"] * n, "g_steps_forward": counts["G"] * n,
-                "g_steps_adjoint": counts["G"] * n, "validation": counts["eval"] * n}
+                "d_steps": by_kind["D"], "g_steps": by_kind["G"], "validation": by_kind["eval"]}
     if sides != expected or counts["eval"] != 2 or per_kind != {
             "D": [(n, 0)], "G": [(n, n)], "eval": [(n, 0)]}:
         raise AssertionError(f"fine-tuner: sides {sides}, launches per step {per_kind}, {counts}")
@@ -1836,6 +1947,292 @@ def resume_phase(card: str, root: Path, averaged: Path) -> None:
         raise AssertionError("--freeze-modules cond_encoder or the D/G alternation failed")
 
 
+# ----------------------------------------------------------- the token family (18)
+
+TIE_TOL = 1e-5  # frames whose best two token scores lie this close (of max|score|) may swap
+TOKEN_STEPS = 8  # bin/pretrain.py on token_24k_base: one epoch of half the corpus at batch 16
+TOKEN_GAN_SIDES = "DDGDGDGD"  # bin/finetune.py on it: 8 batches, 2 D-only
+
+
+def tokens_agree(ours: torch.Tensor, ref: torch.Tensor, scores: torch.Tensor) -> dict:
+    """Token ids equal but on near-ties, frames whose best two of the
+    reference `scores` (B, T, K) lie within TIE_TOL of max|score|; those are
+    fewer than 1% of the frames and counted."""
+    two = scores.double().topk(2, dim=-1, largest=False).values
+    tie = (two[..., 1] - two[..., 0]) <= TIE_TOL * scores.abs().max().item()
+    differ = ours.cpu() != ref.cpu()
+    out = {"frames": tie.numel(), "near_ties": int(tie.sum()), "ids_differ": int(differ.sum())}
+    if (differ & ~tie).any() or tie.float().mean().item() >= 0.01:
+        raise AssertionError(f"tokens disagree beyond the near-ties: {out}")
+    return out
+
+
+def token_codebook(card: str, root: Path) -> Path:
+    """18a: `bin/train_tokenizer.py` (vocab 1024) on phase 10's corpus, its
+    mels on the card, k-means on the CPU; then its tokens on the card against
+    the CPU tokenizer's, with the tie rule. Returns the codebook's path."""
+    out = root / "tokens" / "codebook.npz"
+    start = time.perf_counter()
+    train_tokenizer.main(["--model-name", "token_24k_base", "--recordings",
+                          str(root / "train" / "recordings.jsonl.gz"), "--output", str(out),
+                          "--max-frames", "16384", "--iters", "6", "--device", "cuda"])
+    fit_s = time.perf_counter() - start
+    cpu_tok = MelKMeansTokenizer.from_file(out, expect_config=get_generator_config("token_24k_base"))
+    card_tok = copy.deepcopy(cpu_tok).cuda()
+    audio = torch.from_numpy(voiced(np.random.RandomState(31), 16, 24000))
+    with torch.inference_mode():
+        ids_card = card_tok(audio.cuda())
+        mel = cpu_tok.mel_fn(audio)
+        ids_cpu, scores = cpu_tok.quantize(mel), cpu_tok.scores(mel)
+    agree = tokens_agree(ids_card, ids_cpu, scores)
+    print("token codebook " + json.dumps({
+        "config": "token_24k_base", "vocab": cpu_tok.vocab_size, "fit_frames": 16384,
+        "iters": 6, "fit_wall_s": fit_s, "ids_used_of_1024": len(ids_cpu.unique()),
+        "card_vs_cpu_tokens": agree, "card": card}))
+    return out
+
+
+def token_serving(card: str, codebook: Path) -> dict:
+    """18b: token_24k_base served through `get_model(tokenizer=...)` at batch
+    16 x 94 frames of ids in host memory, 1/2/4 steps: the launches (3 per
+    Euler step), ms per call and x-real-time in turns with mel_24k_base's,
+    card against CPU through infer_from_noise, and `reconstruct`. Returns the
+    launches of the serving calls and of `reconstruct`."""
+    model = get_model("token_24k_base", device="cuda", seed=0, tokenizer=codebook)
+    ids = np.random.RandomState(0).randint(0, 1024, (16, 94))
+    fused.launches = fused.adjoint_launches = 0
+    for n in (1, 2, 4):
+        before = fused.launches
+        wav = model.infer(ids, n_timesteps=n)
+        torch.cuda.synchronize()
+        if wav.shape != (16, 24064) or not torch.isfinite(wav).all():
+            raise AssertionError(f"token {n}-step output {tuple(wav.shape)} not finite (16, 24064)")
+        if fused.launches - before != 3 * n:
+            raise AssertionError(f"token {n}-step call launched the kernel "
+                                 f"{fused.launches - before} times, expected {3 * n}")
+    launches = {"serving": (fused.launches, fused.adjoint_launches)}
+    if fused.adjoint_launches:
+        raise AssertionError(f"token serving launched the adjoint {fused.adjoint_launches} times")
+    print(f"token serving: token_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches "
+          f"{launches['serving'][0]}")
+
+    mel_model = get_model("mel_24k_base", device="cuda", seed=0)
+    mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
+    audio_s = 16 * 24064 / 24000
+    one_step = {}
+    for n in (1, 2, 4):
+        row = {"n_timesteps": n, "batch": 16, "frames": 94, "audio_s": audio_s, "card": card}
+        for name, fn in (("mel_24k_base", lambda: mel_model.infer(mel, n_timesteps=n)),
+                         ("token_24k_base", lambda: model.infer(ids, n_timesteps=n)),
+                         ("mel_24k_base_again", lambda: mel_model.infer(mel, n_timesteps=n)),
+                         ("token_24k_base_again", lambda: model.infer(ids, n_timesteps=n))):
+            ms = time_calls(fn)
+            med = statistics.median(ms)
+            row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
+                         "x_real_time_median": audio_s / med * 1e3}
+            if n == 1:
+                one_step.setdefault(name.removesuffix("_again"), []).append(med)
+        print("token serving timing " + json.dumps(row))
+    # one 1-step call of each, device time by family
+    profile_one_call(card, mel_model, mel, statistics.mean(one_step["mel_24k_base"]), "f32_mel")
+    profile_one_call(card, model, ids, statistics.mean(one_step["token_24k_base"]), "f32_token")
+    del mel_model
+
+    cpu = get_model("token_24k_base", device="cpu", seed=0).module
+    rng = np.random.RandomState(2)
+    cond = torch.from_numpy(rng.randint(0, 1024, (2, 94)))
+    noise = torch.from_numpy((0.1 * rng.randn(2, 24064)).astype(np.float32))
+    for n in (1, 2, 4):
+        with torch.inference_mode():
+            before = fused.launches
+            a = model.module.infer_from_noise(noise.cuda(), cond.cuda(), n_timesteps=n).cpu()
+            if fused.launches - before != 3 * n:
+                raise AssertionError("the token card run did not go through the kernel")
+            b = cpu.infer_from_noise(noise, cond, n_timesteps=n)
+        rel = (a - b).abs().max().item() / b.abs().max().item()
+        print(f"token card vs CPU {n} step(s), batch 2: max_rel_err={rel:.3e}")
+        if not rel <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"token_24k_base: card and CPU disagree at {n} steps: {rel}")
+
+    fused.launches = fused.adjoint_launches = 0
+    wav = model.reconstruct(0.1 * torch.randn(4, 24000, generator=torch.Generator().manual_seed(3)),
+                            n_timesteps=1)
+    torch.cuda.synchronize()
+    launches["reconstruct"] = (fused.launches, fused.adjoint_launches)
+    if wav.shape != (4, 24064) or not torch.isfinite(wav).all() or launches["reconstruct"] != (3, 0):
+        raise AssertionError(f"token reconstruct gave {tuple(wav.shape)}, launches "
+                             f"{launches['reconstruct']}")
+    print(f"token reconstruct: (4, 24000) waveform -> tokens -> {tuple(wav.shape)}, finite, "
+          f"3 launches")
+    return launches
+
+
+def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
+    """18d: `bin/pretrain.py --model-name token_24k_base --tokenizer` for 8
+    steps at batch 16 x 1.5 s on half of phase 10's corpus, every step's
+    launches checked; then its average. Returns the launches over the run
+    and the averaged model's path."""
+    exp = root / "tokens" / "exp_fm"
+    args = pretrain.get_parser().parse_args([
+        "--model-name", "token_24k_base", "--tokenizer", str(codebook), "--batch-size", "16",
+        "--duration", "1.5", "--num-epochs", "1", "--num-workers", "4", "--seed", "0",
+        "--save-every-n", "1000", "--average-period", "4", "--log-interval", "4",
+        "--valid-interval", "4", "--device", "cuda", "--exp-dir", str(exp),
+        "--train-recordings", str(root / "train_half.jsonl.gz"),
+        "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
+    torch.cuda.reset_peak_memory_stats()
+    fused.launches = fused.adjoint_launches = 0
+    start = time.perf_counter()
+    history, calls = run_counting_steps(pretrain, "fm_train_step", args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    steps = len(history)
+    if steps != TOKEN_STEPS or {c[1:] for c in calls} != {(3, 3)} or len(calls) != steps or \
+            launches != {"forward": 3 * (steps + 2), "adjoint": 3 * steps}:
+        raise AssertionError(f"token trainer: {steps} steps, per step {calls}, in all {launches}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite token training loss: {losses}")
+    ms = [h["ms"] for h in history[2:]]
+    med = statistics.median(ms)
+    print("token trainer " + json.dumps({
+        "config": "token_24k_base", "batch": 16, "seconds_per_item": 1.5, "steps": steps,
+        "launches_per_step": calls[0][1:], "loss_curve": losses,
+        "clip_scale": [h["clip_scale"] for h in history], "first_step_ms": history[0]["ms"],
+        "step_ms_median": med, "step_ms_min": min(ms), "step_ms_max": max(ms),
+        "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall_s,
+        "launches": launches, "card": card}))
+    averaged = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "1", "--avg", "1"])
+    for path in exp.glob("*.pt"):
+        if path != averaged:
+            path.unlink()
+    profile_train_step(card, med, tokenizer=MelKMeansTokenizer.from_file(codebook))
+    return launches, averaged
+
+
+def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
+    """18e: `bin/finetune.py --tokenizer` on token_24k_base at 4 Euler steps,
+    batch 16 x 1.5 s, from 18d's average, 8 batches (2 D-only); every step's
+    launches checked: D 12 forward, G 12 forward and 12 adjoint."""
+    exp = root / "tokens" / "exp_gan"
+    args = finetune.get_parser().parse_args([
+        "--model-name", "token_24k_base", "--tokenizer", str(codebook),
+        "--n-timesteps", str(GAN_STEPS), "--batch-size", "16", "--duration", "1.5",
+        "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--gen-start-batch-idx", "2",
+        "--save-every-n", "1000", "--keep-last-k", "1", "--average-period", "4",
+        "--log-interval", "4", "--valid-interval", "0", "--device", "cuda",
+        "--exp-dir", str(exp), "--generator-model-path", str(averaged),
+        "--train-recordings", str(root / "train_half.jsonl.gz")])
+    torch.cuda.reset_peak_memory_stats()
+    fused.launches = fused.adjoint_launches = 0
+    history, calls = run_counting_steps(finetune, "make_gan_steps", args)
+    torch.cuda.synchronize()
+    n = 3 * GAN_STEPS
+    sides = "".join(h["side"] for h in history)
+    per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G")}
+    g_steps = sides.count("G")
+    by_kind = launches_by_kind(calls)
+    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches,
+                "d_steps": by_kind["D"], "g_steps": by_kind["G"]}
+    if sides != TOKEN_GAN_SIDES or per_kind != {"D": [(n, 0)], "G": [(n, n)]} or \
+            launches["forward"] != n * len(calls) or launches["adjoint"] != n * g_steps:
+        raise AssertionError(f"token fine-tuner: sides {sides}, per step {per_kind}, {launches}")
+    losses = [h["loss"] for h in history]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite token GAN loss: {losses}")
+    ms = {side: [h["ms"] for h in history if h["side"] == side][1:] for side in ("D", "G")}
+    print("token fine-tuner " + json.dumps({
+        "config": "token_24k_base", "n_timesteps": GAN_STEPS, "batch": 16,
+        "seconds_per_item": 1.5, "sides": sides,
+        "loss_d": [h["loss"] for h in history if h["side"] == "D"],
+        "loss_g": [h["loss"] for h in history if h["side"] == "G"],
+        "d_step_ms_median": statistics.median(ms["D"]), "g_step_ms_median": statistics.median(ms["G"]),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+        "card": card}))
+    shutil.rmtree(exp, ignore_errors=True)
+    return launches
+
+
+def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
+    """18f: `bin/infer --tokenizer` over phase 14's manifest, and
+    `bin/infer_dir` on its wavs with `--tokenizer` and on their tokens
+    (.npy, from the codebook on the card) with `--tokens true`, whole and in
+    50-frame chunks; checked as phase 14 checks the mel CLIs, and each token
+    run against the wav run that tokenized the same audio. Returns each
+    run's launches (forward, adjoint)."""
+    cli, out = root / "cli", root / "tokens" / "cli"
+    recs = read_recording_manifest(cli / "recordings.jsonl.gz")
+    common = ["--model-name", "token_24k_base", "--checkpoint", str(averaged), "--device", "cuda"]
+    launches = {}
+    fused.launches = fused.adjoint_launches = 0
+    written = infer.main([*common, "--tokenizer", str(codebook),
+                          "--recordings", str(cli / "recordings.jsonl.gz"),
+                          "--root-path", str(root / "valid"), "--output-dir", str(out / "infer"),
+                          "--batch-size", "4", "--num-workers", "2"])
+    launches["infer"] = (fused.launches, fused.adjoint_launches)
+    for rec, path in zip(recs, written):
+        got, sr = read_wav(path)
+        if sr != 24000 or got.shape != (1, rec.num_samples) or not np.isfinite(got).all():
+            raise AssertionError(f"bin/infer --tokenizer wrote {path} at {sr} Hz, shape {got.shape}")
+    if len(written) != len(recs) or launches["infer"] != (3 * 2, 0):  # 6 files in batches of 4
+        raise AssertionError(f"bin/infer --tokenizer: {len(written)} files, {launches['infer']} launches")
+    tok = MelKMeansTokenizer.from_file(codebook).cuda()
+    (out / "ids").mkdir(parents=True, exist_ok=True)
+    for wav in sorted((cli / "wavs").glob("*.wav")):
+        with torch.inference_mode():
+            ids = tok(torch.from_numpy(read_wav(wav)[0]).cuda())
+        np.save(out / "ids" / (wav.stem + ".npy"), ids.cpu().numpy())
+    runs = {}
+    for name, flags in (("wav", ["--input-dir", str(cli / "wavs"), "--tokenizer", str(codebook)]),
+                        ("tokens", ["--input-dir", str(out / "ids"), "--tokens", "true"])):
+        for chunked, extra in ((False, []), (True, ["--chunk-size", "50"])):
+            key = f"infer_dir_{name}" + ("_chunked" if chunked else "")
+            fused.launches = fused.adjoint_launches = 0
+            runs[key] = infer_dir.main([*common, *flags, "--output-dir", str(out / key), *extra])
+            launches[key] = (fused.launches, fused.adjoint_launches)
+    frames = 48000 // 256 + 1  # 2 s files
+    chunks = -(-frames // 50)
+    if any(launches[k] != (3 * 4 * (chunks if k.endswith("chunked") else 1), 0) for k in runs):
+        raise AssertionError(f"token bin/infer_dir launches {launches}")
+    diffs = []
+    for name in ("wav", "tokens"):
+        for whole, chunked, from_wav in zip(runs[f"infer_dir_{name}"],
+                                            runs[f"infer_dir_{name}_chunked"],
+                                            runs["infer_dir_wav"]):
+            a, b, w = read_wav(whole)[0], read_wav(chunked)[0], read_wav(from_wav)[0]
+            if not (a.shape == b.shape == (1, frames * 256) and np.isfinite(a).all()
+                    and np.isfinite(b).all()):
+                raise AssertionError(f"token bin/infer_dir wrote {a.shape} and {b.shape}")
+            same = float(np.abs(a - w).max() / max(np.abs(w).max(), 1e-12))
+            if same > CARD_VS_CPU_TOL:
+                raise AssertionError(f"{whole.name}: the token file's output is {same} from the wav's")
+            diffs.append({"mode": name, "file": whole.name,
+                          "chunked_vs_whole_max_abs": float(np.abs(a - b).max()),
+                          "chunked_vs_whole_rms": float(np.sqrt(np.mean((a - b) ** 2))),
+                          "whole_rms": float(np.sqrt(np.mean(a ** 2))),
+                          "vs_wav_mode_max_rel": same})
+    print("token CLIs " + json.dumps({"infer_files": len(written), "infer_dir_files": 4,
+                                      "launches": launches, "chunks_per_file": chunks,
+                                      "outputs": diffs, "card": card}))
+    return launches
+
+
+def token_family(card: str, root: Path) -> dict:
+    """Phase 18, the token family at full width: 18a-f. Returns each path's
+    launches of both kernels."""
+    codebook = token_codebook(card, root)
+    serving = token_serving(card, codebook)
+    fm_step = [grads_card_vs_cpu(card, "token_24k_base", seed, float64=True) for seed in (5, 6)]
+    train_launches, averaged = token_trainer(card, root, codebook)
+    gan = token_finetune(card, root, codebook, averaged)
+    cli_launches = token_clis(card, root, codebook, averaged)
+    shutil.rmtree(root / "tokens", ignore_errors=True)
+    return {"serving": serving, "fm_step": fm_step, "train": train_launches, "gan": gan,
+            "cli": cli_launches}
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -1924,11 +2321,24 @@ def main() -> int:
     dp = data_parallel_steps(card)
     dp_train = data_parallel_trainer(card, root)
     resume_phase(card, root, averaged)
+    tokens = token_family(card, root)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
     dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
                 "gan_g_step_2_ranks_per_rank": 2,
                 f"pretrain_2_ranks_{dp_train['steps']}_steps_per_rank": 3}
     dp_launches = [dp["fm"], dp["d"], dp["g"], dp_train["launches"]]
+    # each token path's launches (forward, adjoint), as its run read them
+    token_paths = {
+        "token_serving_f32_1_2_4_steps": tokens["serving"]["serving"],
+        "token_reconstruct_1_step": tokens["serving"]["reconstruct"],
+        **{f"token_fm_step_card_vs_cpu_seed_{seed}": pair
+           for seed, pair in zip((5, 6), tokens["fm_step"])},
+        f"token_training_{TOKEN_STEPS}_steps": (tokens["train"]["forward"],
+                                                tokens["train"]["adjoint"]),
+        "token_finetune_4_steps_8_batches": (tokens["gan"]["forward"], tokens["gan"]["adjoint"]),
+        "token_finetune_d_steps": tokens["gan"]["d_steps"],
+        "token_finetune_g_steps": tokens["gan"]["g_steps"],
+        **{f"token_cli_{k}": v for k, v in tokens["cli"].items()}}
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
     train_step = adjoint_shapes[-3:]  # the three branches of one training step
@@ -1947,13 +2357,14 @@ def main() -> int:
             "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][0],
             "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][0],
             "gan_finetune_4_steps_32_batches": gan["launches"]["forward"],
-            "gan_finetune_d_steps": gan["launches"]["d_steps"],
-            "gan_finetune_g_steps": gan["launches"]["g_steps_forward"],
-            "gan_finetune_validation": gan["launches"]["validation"],
+            "gan_finetune_d_steps": gan["launches"]["d_steps"][0],
+            "gan_finetune_g_steps": gan["launches"]["g_steps"][0],
+            "gan_finetune_validation": gan["launches"]["validation"][0],
             "gan_g_step_plain": remat_launches["plain"][0],
             "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
             "cli_infer_load_gan_4_steps": gan_cli_launches,
-            **{k: dp_launches[i][0] for k, i in dp_paths.items()}},
+            **{k: dp_launches[i][0] for k, i in dp_paths.items()},
+            **{k: v[0] for k, v in token_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in shapes + reference_batches["istft"]),
         "max_rel_err": max(s["max_rel_err"] for s in shapes + reference_batches["istft"]),
         "ms": sum(s["ms"] for s in step),
@@ -1977,12 +2388,13 @@ def main() -> int:
                              "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][1],
                              "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][1],
                              "gan_finetune_4_steps_32_batches": gan["launches"]["adjoint"],
-                             "gan_finetune_d_steps": 0,
-                             "gan_finetune_g_steps": gan["launches"]["g_steps_adjoint"],
-                             "gan_finetune_validation": 0,
+                             "gan_finetune_d_steps": gan["launches"]["d_steps"][1],
+                             "gan_finetune_g_steps": gan["launches"]["g_steps"][1],
+                             "gan_finetune_validation": gan["launches"]["validation"][1],
                              "gan_g_step_plain": remat_launches["plain"][1],
                              "gan_g_step_remat": remat_launches["remat"][1],
-                             **{k: dp_launches[i][1] for k, i in dp_paths.items()}},
+                             **{k: dp_launches[i][1] for k, i in dp_paths.items()},
+                             **{k: v[1] for k, v in token_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "ms": sum(s["ms"] for s in train_step),

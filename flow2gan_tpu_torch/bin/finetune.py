@@ -6,10 +6,11 @@ The counterpart of `flow2gan_tpu/bin/finetune.py`, with its flag names and
 defaults for what is ported, and `--device` (default cuda; the tests pass
 cpu). The generator starts from `--generator-model-path`: the FM trainer's
 epoch checkpoint or averaged `.pt`, or a checkpoint in the reference's
-naming. Branch dropout is off. The discriminators (MPD + MRD) start from
-flax's default init. The first `--gen-start-batch-idx` batches train the
-discriminators alone; then D and G steps strictly alternate, each with its
-own ScaledAdam and Eden2 lr. Every D step rolls the generator out in eval
+naming. A token config is conditioned on the ids of the `--tokenizer`
+codebook; the mel reconstruction loss stays on mels. Branch dropout is
+off. The discriminators (MPD + MRD) start from flax's default init. The
+first `--gen-start-batch-idx` batches train the discriminators alone; then
+D and G steps strictly alternate, each with its own ScaledAdam and Eden2 lr. Every D step rolls the generator out in eval
 form (3n fused-iSTFT launches); every G step differentiates the train-form
 n-step rollout (3n forward and 3n adjoint launches). `--remat-rollout true`
 recomputes each Euler step in backward.
@@ -51,7 +52,6 @@ import torch
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.bin.pretrain import (
     OBSERVABILITY,
-    TOKEN_FAMILY,
     _to_device,
     build_loaders,
     check_ported,
@@ -64,8 +64,8 @@ from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.models import build_generator, get_gan_config, get_generator_config
 from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
 from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
-from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import num_frames
+from flow2gan_tpu_torch.ops.tokenizer import conditioning_frontend
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.gan_step import GANLossScales, make_gan_steps
@@ -77,7 +77,6 @@ from flow2gan_tpu_torch.utils import MetricsTracker, str2bool
 # flags of the JAX trainer that the port does not run yet: (attribute, its
 # default, the ROADMAP.md item that ports it)
 _LATER = (
-    ("tokenizer", None, TOKEN_FAMILY),
     ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("print_diagnostics", False, OBSERVABILITY),
     ("inf_check", False, OBSERVABILITY),
@@ -99,7 +98,8 @@ def get_parser():
     parser.add_argument("--gan-name", type=str, default="gan_multi_scale_mel_recon")
     parser.add_argument("--generator-model-path", type=str, default=None,
                         help="The FM trainer's checkpoint or averaged .pt, or a reference-named .pt")
-    parser.add_argument("--tokenizer", type=str, default=None, help="not ported yet")
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        help="k-means codebook .npz for token_* configs (bin/train_tokenizer.py)")
     parser.add_argument("--n-timesteps", type=int, default=1)
     parser.add_argument("--num-epochs", type=int, default=20)
     parser.add_argument("--start-epoch", type=int, default=1,
@@ -176,6 +176,9 @@ def _finetune(args, device: torch.device) -> List[dict]:
     cfg = get_generator_config(args.model_name)
     cfg["branch_dropout"] = 0.0  # off in the GAN stage, as in the reference
     gan_cfg = get_gan_config(args.gan_name)
+    # the rollout's conditioning: the log-mel, or for a token config the
+    # tokenizer over the same frontend; the mel reconstruction loss keeps mels
+    cond_fn = conditioning_frontend(cfg, args.tokenizer, args.model_name).to(device)
     generator = init_weights(build_generator(cfg), torch.Generator().manual_seed(args.seed))
     if args.generator_model_path:
         logging.info(f"Loading generator from {args.generator_model_path}")
@@ -183,8 +186,6 @@ def _finetune(args, device: torch.device) -> List[dict]:
     generator.to(device)
     discriminators = init_discriminators(
         Discriminators(), torch.Generator().manual_seed(args.seed)).to(device)
-    mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
-                               hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
     mel_recon_fns = make_mel_recon_fns(cfg.sampling_rate, gan_cfg.mel_recon_n_ffts,
                                        gan_cfg.mel_recon_n_mels).to(device)
     optimizer_g = ScaledAdam(generator.named_parameters(), clipping_scale=2.0,
@@ -196,7 +197,7 @@ def _finetune(args, device: torch.device) -> List[dict]:
         fmap_mp=args.feat_map_loss_mp_scale, fmap_mr=args.feat_map_loss_mr_scale,
         mel_recon=args.mel_recon_loss_scale)
     d_step, g_step, eval_step = make_gan_steps(
-        generator, discriminators, mel_fn, mel_recon_fns, optimizer_g, optimizer_d,
+        generator, discriminators, cond_fn, mel_recon_fns, optimizer_g, optimizer_d,
         lr_g_fn=lambda b: eden2_lr(args.lr_g, b, args.lr_batches_g,
                                    warmup_batches=args.warmup_batches,
                                    warmup_start=args.warmup_start),

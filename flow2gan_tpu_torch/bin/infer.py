@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Batch inference over a recordings manifest (wav -> mel -> wav
-reconstruction) with the port; the counterpart of `flow2gan_tpu/bin/infer.py`.
+reconstruction, or wav -> tokens -> wav for a token config with
+--tokenizer) with the port; the counterpart of `flow2gan_tpu/bin/infer.py`.
 
     python -m flow2gan_tpu_torch.bin.infer --exp-dir exp/fm --epoch 40 --avg 40 \
         --recordings data/test.jsonl.gz --root-path data --output-dir out
@@ -34,6 +35,7 @@ from flow2gan_tpu_torch.data.audio_io import write_wav
 from flow2gan_tpu_torch.data.dataset import build_data_loader, read_recording_manifest
 from flow2gan_tpu_torch.models import build_generator, get_generator_config
 from flow2gan_tpu_torch.models.config import HF_MODEL_NAMES, HF_REPO, generator_config_for_hf_model
+from flow2gan_tpu_torch.ops.tokenizer import load_token_frontend
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.utils import disable_tf32, setup_logger, str2bool
 
@@ -63,7 +65,9 @@ def get_parser():
     parser.add_argument("--output-dir", type=Path, required=True)
     parser.add_argument("--n-timesteps", type=int, default=None,
                         help="Euler steps (default: the released model's, else 1)")
-    parser.add_argument("--tokenizer", type=str, default=None, help="not ported yet")
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        help="k-means codebook .npz for token_* configs (bin/train_tokenizer.py): "
+                        "reconstruction runs audio -> tokens -> audio")
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--num-workers", type=int, default=8)
     parser.add_argument("--seed", type=int, default=0)
@@ -109,9 +113,6 @@ def output_path(output_dir: Path, name: str) -> Path:
 def main(argv=None) -> List[Path]:
     """Reconstruct every recording of the manifest; returns the written paths."""
     args = get_parser().parse_args(argv)
-    if args.tokenizer is not None:
-        raise NotImplementedError("--tokenizer is not ported yet: ROADMAP.md, "
-                                  "'The token family'")
     if args.hf_model_name is not None and args.hf_model_name not in HF_MODEL_NAMES:
         raise ValueError(f"Unknown released model {args.hf_model_name!r}; available: "
                          f"{sorted(HF_MODEL_NAMES)}")
@@ -128,9 +129,10 @@ def main(argv=None) -> List[Path]:
                                      if args.hf_model_name else "mel_24k_base")
     n_timesteps = args.n_timesteps or HF_MODEL_NAMES.get(args.hf_model_name, 1)
     cfg = get_generator_config(model_name)
+    tokenizer = load_token_frontend(cfg, args.tokenizer, model_name)
     model = build_generator(cfg)
     model.load_state_dict(resolve_params(args, model), strict=True)
-    vm = VocoderModel(model.to(device), cfg, device, n_timesteps)
+    vm = VocoderModel(model.to(device), cfg, device, n_timesteps, tokenizer)
 
     loader = build_data_loader(read_recording_manifest(args.recordings), root_path=args.root_path,
                                sampling_rate=cfg.sampling_rate, batch_size=args.batch_size,
@@ -138,7 +140,7 @@ def main(argv=None) -> List[Path]:
     written, total_audio_s = [], 0.0
     t0 = time.perf_counter()
     for batch in loader:
-        wav = vm.infer(vm.mel(batch["audio"]), seed=args.seed).cpu().numpy()
+        wav = vm.infer(vm.cond(batch["audio"]), seed=args.seed).cpu().numpy()
         for i, name in enumerate(batch["file_names"]):
             n = int(batch["audio_lens"][i])
             out = output_path(args.output_dir, name)

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
-"""Directory inference with the port: every .wav (audio mode) or .npy/.pt
-mel (mel mode) in a directory, whole or streamed in chunks; the counterpart
-of `flow2gan_tpu/bin/infer_dir.py`.
+"""Directory inference with the port: every .wav (audio mode), .npy/.pt
+mel (mel mode) or integer .npy token file (token mode, `--tokens true`) in a
+directory, whole or streamed in chunks; the counterpart of
+`flow2gan_tpu/bin/infer_dir.py`. A token config takes wavs with
+`--tokenizer <codebook.npz>` (tokenized first) or token files.
 
     python -m flow2gan_tpu_torch.bin.infer_dir --checkpoint model.pt \
         --input-dir wavs --output-dir out --chunk-size 100
 
 The chunked mode keeps the reference's receptive-field halo (3 frames per
-layer of the k=7 convs on each side) and pads every chunk to one frame count,
-as the JAX package does so that its jitted synthesis compiles once. Eager
-PyTorch would not recompile, but the fixed shape keeps every chunk's noise
-and edge padding, and so the output, the same as the JAX package's.
+layer of the k=7 convs on each side) and pads every chunk to one frame count
+by repeating its last frame (mel column or token id), as the JAX package
+does so that its jitted synthesis compiles once. Eager PyTorch would not
+recompile, but the fixed shape keeps every chunk's noise and edge padding,
+and so the output, the same as the JAX package's.
 `--device` defaults to cuda; the tests pass cpu.
 """
 
@@ -29,7 +32,8 @@ from flow2gan_tpu_torch.api import VocoderModel, get_model
 from flow2gan_tpu_torch.data.audio_io import read_wav, resample, write_wav
 from flow2gan_tpu_torch.utils import setup_logger, str2bool
 
-Synth = Callable[[np.ndarray], np.ndarray]  # (1, n_mels, frames) -> (1, frames * hop)
+# (1, n_mels, frames) mels or (1, frames) token ids -> (1, frames * hop)
+Synth = Callable[[np.ndarray], np.ndarray]
 
 
 def get_parser():
@@ -48,8 +52,11 @@ def get_parser():
     parser.add_argument("--output-dir", type=Path, required=True)
     parser.add_argument("--mel", type=str2bool, default=False,
                         help="Inputs are mel files (.npy / .pt) instead of wavs")
-    parser.add_argument("--tokens", type=str2bool, default=False, help="not ported yet")
-    parser.add_argument("--tokenizer", type=str, default=None, help="not ported yet")
+    parser.add_argument("--tokens", type=str2bool, default=False,
+                        help="Inputs are integer token files (.npy) for token_* configs")
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        help="k-means codebook .npz: token_* configs with wav inputs "
+                        "(audio is tokenized first)")
     parser.add_argument("--n-timesteps", type=int, default=None,
                         help="Euler steps (default: the released model's, else 1)")
     parser.add_argument("--chunk-size", type=int, default=0,
@@ -74,9 +81,25 @@ def load_mel_file(path: Path) -> np.ndarray:
     return mel.astype(np.float32)
 
 
+def load_token_file(path: Path, vocab_size: int) -> np.ndarray:
+    """(frames,) int64 token ids from a .npy file, (1, frames) allowed;
+    ValueError for anything but integer ids in [0, vocab_size)."""
+    ids = np.load(path)
+    if ids.ndim == 2 and ids.shape[0] == 1:
+        ids = ids[0]
+    if ids.ndim != 1 or ids.dtype.kind not in "iu":
+        raise ValueError(f"{path}: token files hold integer ids, (frames,) or (1, frames); "
+                         f"got {ids.dtype} {ids.shape}")
+    if ids.size and not (ids.min() >= 0 and ids.max() < vocab_size):
+        raise ValueError(f"{path}: token ids must lie in [0, {vocab_size}); got ids in "
+                         f"[{ids.min()}, {ids.max()}]")
+    return ids.astype(np.int64)
+
+
 def make_synth(model: VocoderModel, n_timesteps: int, seed: int) -> Synth:
-    """Mels (B, n_mels, frames) -> waveforms (B, frames * hop) as numpy, every
-    call with the noise of `seed`, as the JAX package's synth uses one key."""
+    """Conditioning (B, ..., frames) -> waveforms (B, frames * hop) as numpy,
+    every call with the noise of `seed`, as the JAX package's synth uses one
+    key."""
     def synth(cond: np.ndarray) -> np.ndarray:
         return model.infer(cond, n_timesteps=n_timesteps, seed=seed).cpu().numpy()
 
@@ -85,10 +108,11 @@ def make_synth(model: VocoderModel, n_timesteps: int, seed: int) -> Synth:
 
 def streaming_infer(synth: Synth, cond: np.ndarray, chunk_size: int, num_layers: int,
                     hop: int) -> np.ndarray:
-    """(n_mels, frames) -> (frames * hop,) in chunks of `chunk_size` frames,
-    each synthesised with a halo of 3 * num_layers frames on either side and
-    padded at the right, by repeating its last frame, to chunk_size + 2 *
-    halo frames; the halos are cut from the output."""
+    """(n_mels, frames) mels or (frames,) token ids -> (frames * hop,) in
+    chunks of `chunk_size` frames, each synthesised with a halo of 3 *
+    num_layers frames on either side and padded at the right, by repeating
+    its last frame, to chunk_size + 2 * halo frames; the halos are cut from
+    the output."""
     side = 3 * num_layers
     frames = cond.shape[-1]
     padded_chunk = chunk_size + 2 * side
@@ -111,18 +135,22 @@ def streaming_infer(synth: Synth, cond: np.ndarray, chunk_size: int, num_layers:
 def main(argv=None) -> List[Path]:
     """Synthesise every input file of the directory; returns the written paths."""
     args = get_parser().parse_args(argv)
-    if args.tokens or args.tokenizer is not None:
-        raise NotImplementedError("--tokens and --tokenizer are not ported yet: ROADMAP.md, "
-                                  "'The token family'")
     args.output_dir.mkdir(parents=True, exist_ok=True)
     setup_logger(f"{args.output_dir}/log/log-infer-dir")
     logging.info(vars(args))
 
     vm = get_model(model_name=args.model_name, checkpoint=args.checkpoint, device=args.device,
-                   hf_model_name=args.hf_model_name)
+                   hf_model_name=args.hf_model_name, tokenizer=args.tokenizer)
     cfg = vm.config
+    if vm.is_token and not (args.tokens or args.tokenizer):
+        raise ValueError("token_* config: pass --tokens true (int .npy inputs) or "
+                         "--tokenizer <codebook.npz> (wav inputs)")
+    if args.tokens and not vm.is_token:
+        raise ValueError(f"--tokens true needs a token_* config, not {args.model_name}")
     synth = make_synth(vm, args.n_timesteps or vm.n_timesteps, args.seed)
-    if args.mel:
+    if args.tokens:
+        files = sorted(args.input_dir.glob("*.npy"))
+    elif args.mel:
         files = sorted([*args.input_dir.glob("*.npy"), *args.input_dir.glob("*.pt")])
     else:
         files = sorted(args.input_dir.glob("*.wav"))
@@ -131,14 +159,16 @@ def main(argv=None) -> List[Path]:
 
     written, total_audio, total_time = [], 0.0, 0.0
     for f in files:
-        if args.mel:
+        if args.tokens:
+            cond = load_token_file(f, cfg.vocab_size)
+        elif args.mel:
             cond = load_mel_file(f)
         else:
             audio, sr = read_wav(f)
             if audio.shape[0] > 1:
                 audio = audio.mean(axis=0, keepdims=True)
             audio = resample(audio, sr, cfg.sampling_rate)
-            cond = vm.mel(audio)[0].cpu().numpy()
+            cond = vm.cond(audio)[0].cpu().numpy()
         t0 = time.perf_counter()
         if args.chunk_size > 0:
             wav = streaming_infer(synth, cond, args.chunk_size, num_layers=max(cfg.num_layers),

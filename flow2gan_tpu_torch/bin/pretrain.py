@@ -7,6 +7,8 @@ defaults for what is ported, and `--device` (default cuda; the tests pass
 cpu). Each step runs the fused iSTFT kernel forward and its adjoint kernel
 backward on every branch. `--use-bf16 true` runs the ConvNeXt stacks in
 bfloat16 (`compute_dtype`); parameters, the iSTFT and the loss stay float32.
+A token config (`token_24k_base`) is conditioned on the ids of the k-means
+codebook that `--tokenizer` names (fit by `bin/train_tokenizer.py`).
 Checkpoints: epoch-0.pt (the initial model), then
 epoch-N.pt at the end of each epoch and checkpoint-<batch>.pt every
 --save-every-n batches (the last --keep-last-k kept), each with the float64
@@ -49,7 +51,7 @@ import torch
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.data.dataset import build_data_loader, read_recording_manifest
 from flow2gan_tpu_torch.models import build_generator, get_generator_config
-from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
+from flow2gan_tpu_torch.ops.tokenizer import conditioning_frontend
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
@@ -62,15 +64,13 @@ from flow2gan_tpu_torch.training.optim import (
 from flow2gan_tpu_torch.training.train_step import fm_eval_loss, fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import MetricsTracker, disable_tf32, setup_logger, str2bool
 
-# the ROADMAP.md items (queue 1, by title) that port what the trainers do not
+# the ROADMAP.md item (queue 1, by title) that ports what the trainers do not
 # run yet
 OBSERVABILITY = "ROADMAP.md, 'Observability'"
-TOKEN_FAMILY = "ROADMAP.md, 'The token family'"
 
 # flags of the JAX trainer that the port does not run yet: (attribute, its
 # default, the ROADMAP.md item that ports it)
 _LATER = (
-    ("tokenizer", None, TOKEN_FAMILY),
     ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("save_infer_steps", "2,4,8", OBSERVABILITY + " (TensorBoard sample dumps)"),
     ("print_diagnostics", False, OBSERVABILITY),
@@ -87,7 +87,9 @@ def get_parser():
     )
     parser.add_argument("--exp-dir", type=Path, default=Path("exp/fm"))
     parser.add_argument("--model-name", type=str, default="mel_24k_base")
-    parser.add_argument("--tokenizer", type=str, default=None, help="not ported yet")
+    parser.add_argument("--tokenizer", type=str, default=None,
+                        help="k-means codebook .npz for token_* configs (bin/train_tokenizer.py): "
+                        "the frozen pseudo-codec that conditions TokenAudioGenerator")
     parser.add_argument("--num-epochs", type=int, default=200)
     parser.add_argument("--start-epoch", type=int, default=1,
                         help="Resume from epoch-{start-epoch-1}.pt when > 1")
@@ -272,9 +274,10 @@ def _train(args, device: torch.device) -> List[dict]:
     cfg = get_generator_config(args.model_name)
     if args.use_bf16:
         cfg["compute_dtype"] = "bfloat16"
+    # the model's conditioning: the log-mel, or for a token config the
+    # frozen k-means pseudo-codec over the same frontend
+    cond_fn = conditioning_frontend(cfg, args.tokenizer, args.model_name).to(device)
     model = init_weights(build_generator(cfg), torch.Generator().manual_seed(args.seed)).to(device)
-    mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
-                               hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
     logging.info(f"Number of model parameters: {sum(p.numel() for p in model.parameters())}")
     train_dls, valid_dls, dls_weights = build_loaders(args, cfg.sampling_rate, 32)
 
@@ -336,7 +339,7 @@ def _train(args, device: torch.device) -> List[dict]:
             start = time.perf_counter()
             # lr and draws from the count of batches before this one
             metrics = fm_train_step(
-                model, optimizer, mel_fn, _to_device(batch, device),
+                model, optimizer, cond_fn, _to_device(batch, device),
                 eden2_lr(args.base_lr, batch_idx_train - 1, args.lr_batches,
                          warmup_batches=args.warmup_batches, warmup_start=args.warmup_start),
                 step_generator(args.seed + 1, batch_idx_train - 1, device))
@@ -370,7 +373,7 @@ def _train(args, device: torch.device) -> List[dict]:
                 for dl in valid_dls:
                     for vb in dl:
                         n = vb["audio"].shape[0]
-                        valid["loss"] += float(fm_eval_loss(model, mel_fn, _to_device(vb, device),
+                        valid["loss"] += float(fm_eval_loss(model, cond_fn, _to_device(vb, device),
                                                             gen)) * n
                         valid["samples"] += n
                 valid.reduce(device)

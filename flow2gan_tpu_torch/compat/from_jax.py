@@ -14,6 +14,8 @@ and re-lays the kernels:
   (k, 1, C) -> (C, 1, k) is the same rule;
 - 2-D conv kernel (kh, kw, I, O) (flax's HWIO) -> Conv2d weight (O, I, kh,
   kw);
+- Embed `embedding` (vocab, dim) -> Embedding `weight` (vocab, dim), not
+  transposed (the token family's `token_embed`);
 - PReLU `alpha`, BiasNorm `bias` / `log_scale`, ChannelScale `scale` and
   all biases carry across as they are.
 
@@ -54,6 +56,8 @@ def _convert_leaf(leaf: str, value: np.ndarray):
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {value.ndim}")
+    if leaf == "embedding":
+        return "weight", value
     return leaf, value
 
 

@@ -73,7 +73,10 @@ mel_24k_tiny = {
     "loss_hop_length": 64,
 }
 
-# Discrete-token-conditioned family; `build_generator` does not build it yet.
+# Discrete-token-conditioned family: `conditioning: "tokens"` swaps the mel
+# frontend for the k-means pseudo-codec (`ops/tokenizer.py`,
+# `bin/train_tokenizer.py`); the mel_* keys describe the tokenizer's frontend,
+# checked against the codebook file at load.
 token_24k_base = {
     **mel_24k_base,
     "conditioning": "tokens",

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU
+from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU, at_least_float32
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.stft import real_to_spec, spec_to_real, stft, stft_lens
 from flow2gan_tpu_torch.utils import make_valid_mask
@@ -42,11 +42,12 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torc
     if dim % 2:
         raise ValueError(f"embedding dim must be even, got {dim}")
     half = dim // 2
+    t = at_least_float32(t)
     freqs = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=t.device)
+        torch.arange(half, dtype=t.dtype, device=t.device)
         * (-math.log(10000.0) / (half - 1))
     )
-    arg = scale * t[:, None].float() * freqs[None, :]
+    arg = scale * t[:, None] * freqs[None, :]
     return torch.cat([torch.sin(arg), torch.cos(arg)], dim=-1)
 
 
@@ -258,7 +259,7 @@ class ConvNeXtDecoder(nn.Module):
         cond = _dense(self.cond_mlp_2, self.cond_mlp_1(_dense(self.cond_mlp_0, cond, dtype)), dtype)
         for block in self.blocks:
             x = block(x, cond=cond, time_embed=time_embed, mask=mask, gates=gates)
-        return _dense(self.out_proj, x, dtype).float()
+        return at_least_float32(_dense(self.out_proj, x, dtype))
 
 
 class AudioConvNeXt(nn.Module):

@@ -1,11 +1,17 @@
-"""Mel-conditioned flow-matching generator (endpoint / x1-prediction form),
-counterpart of `flow2gan_tpu/models/generator.py`: the Euler solve that
-serves, and the flow-matching loss that pretrains.
+"""Flow-matching generators (endpoint / x1-prediction form), counterpart of
+`flow2gan_tpu/models/generator.py`: the Euler solve that serves, and the
+flow-matching loss that pretrains.
+
+`BaseAudioGenerator` holds the branches, the solve and the loss;
+`MelAudioGenerator` is conditioned on log-mels, (B, n_mels, frames) in the
+reference layout, transposed once to channels-last; `TokenAudioGenerator` on
+discrete tokens (B, frames) through an embedding table (`ops/tokenizer.py`
+makes them). Either way the conditioning's last axis is its frames, one per
+`cond_hop_length` samples.
 
 The Euler solve is an unrolled Python loop over 1/2/4 steps. The JAX
 package's scanned and rematerialised rollouts exist only for the TPU
-compiler's limits and are not ported. Conditioning enters as (B, n_mels,
-frames), the reference layout, and is transposed once to channels-last.
+compiler's limits and are not ported.
 
 The loss's random draws (x0, t, the limiters' gates, the branch-dropout
 weights, the mel noise) are one `FMDraws`: training draws it on the device
@@ -51,7 +57,8 @@ class FMDraws:
     t: (B,) flow times in [0, 1);
     gates: (n_limiters,) 0/1 floats, or None for the eval form;
     branch_weight: (B, n_branches) branch-dropout weights, or None;
-    cond_noise: (B, frames, n_mels) noise added to the mels, or None.
+    cond_noise: (B, frames, n_mels) noise added to the mels, or None (always
+    for tokens).
     """
 
     x0: torch.Tensor
@@ -65,7 +72,7 @@ class FMDraws:
 class RolloutDraws:
     """The random draws of one Euler rollout.
 
-    x0: (B, frames * mel_hop_length) noise endpoint, already scaled by
+    x0: (B, frames * cond_hop_length) noise endpoint, already scaled by
     `init_noise_scale`;
     gates: (n_timesteps, n_limiters) 0/1 floats, or None for the eval form.
     Row s gates the branches' limiters at Euler step s; the cond encoder,
@@ -89,11 +96,15 @@ def branch_dropout_weight(branch_idx: torch.Tensor, do_drop: torch.Tensor,
     return torch.where(do_drop, mask, torch.ones_like(mask))
 
 
-class MelAudioGenerator(nn.Module):
-    """Multi-branch endpoint-FM generator conditioned on log-mels."""
+class BaseAudioGenerator(nn.Module):
+    """Multi-branch endpoint-FM generator on encoded conditioning of
+    `cond_dim` channels, one frame per `cond_hop_length` samples; the
+    subclasses turn their conditioning into it (`_encode_cond`)."""
 
     def __init__(
         self,
+        cond_dim: int = 100,
+        cond_hop_length: int = 256,
         n_ffts: Sequence[int] = (512, 256, 128),
         hop_lengths: Sequence[int] = (256, 128, 64),
         channels: Sequence[int] = (768, 512, 384),
@@ -102,8 +113,6 @@ class MelAudioGenerator(nn.Module):
         conv_kernel_sizes: Sequence[int] = (7, 7, 7),
         num_layers: Sequence[int] = (8, 8, 8),
         use_cond_encoder: bool = True,
-        n_mels: int = 100,
-        mel_hop_length: int = 256,
         cond_enc_channels: int = 512,
         cond_enc_hidden_factor: int = 3,
         cond_enc_conv_kernel_size: int = 7,
@@ -122,7 +131,6 @@ class MelAudioGenerator(nn.Module):
         loss_scale_min: float = 1e-2,
         loss_scale_max: float = 1e2,
         branch_dropout: float = 0.05,
-        max_add_noise_scale: float = 0.0,
         compute_dtype: Optional[str] = None,
         istft_impl: str = "auto",
     ):
@@ -135,8 +143,8 @@ class MelAudioGenerator(nn.Module):
             raise ValueError("per-branch config tuples must all have one entry per branch")
         if branch_reduction not in ("mean", "sum"):
             raise ValueError(f"branch_reduction must be 'mean' or 'sum', got {branch_reduction!r}")
-        self.n_mels = n_mels
-        self.mel_hop_length = mel_hop_length
+        self.cond_dim = cond_dim
+        self.cond_hop_length = cond_hop_length
         self.init_noise_scale = init_noise_scale
         self.pred_x1 = pred_x1
         self.branch_reduction = branch_reduction
@@ -148,10 +156,9 @@ class MelAudioGenerator(nn.Module):
         self.loss_scale_min = loss_scale_min
         self.loss_scale_max = loss_scale_max
         self.branch_dropout = branch_dropout
-        self.max_add_noise_scale = max_add_noise_scale
         self.cond_encoder = (
             CondEncoder(
-                cond_dim=n_mels,
+                cond_dim=cond_dim,
                 channels=cond_enc_channels,
                 hidden_factor=cond_enc_hidden_factor,
                 conv_kernel_size=cond_enc_conv_kernel_size,
@@ -166,9 +173,9 @@ class MelAudioGenerator(nn.Module):
             AudioConvNeXt(
                 n_fft=n_ffts[i],
                 hop_length=hop_lengths[i],
-                cond_hop_length=mel_hop_length,
+                cond_hop_length=cond_hop_length,
                 channels=channels[i],
-                cond_channels=cond_enc_channels if use_cond_encoder else n_mels,
+                cond_channels=cond_enc_channels if use_cond_encoder else cond_dim,
                 time_embed_channels=time_embed_channels,
                 hidden_factor=hidden_factor,
                 conv_kernel_size=conv_kernel_sizes[i],
@@ -273,10 +280,11 @@ class MelAudioGenerator(nn.Module):
 
     def draw(self, audio: torch.Tensor, n_frames: int, generator: torch.Generator,
              train: bool = True, shard: Shard = Shard()) -> FMDraws:
-        """The draws of one loss on (B, L) `audio` with `n_frames` mel frames,
-        from `generator` (on audio's device): x0 ~ N(0, init_noise_scale^2),
-        t ~ U(0, 1); in training also the gates (Bernoulli 0.6), branch
-        dropout and the mel noise, as far as the config turns them on.
+        """The draws of one loss on (B, L) `audio` with `n_frames`
+        conditioning frames, from `generator` (on audio's device): x0 ~ N(0,
+        init_noise_scale^2), t ~ U(0, 1); in training also the gates
+        (Bernoulli 0.6), branch dropout and the mel noise (`_cond_noise`), as
+        far as the config turns them on.
         `audio` is `shard`'s rows of the global batch: every draw is made for
         the global batch and cut to those rows (the gates, one per limiter,
         are whole)."""
@@ -293,17 +301,19 @@ class MelAudioGenerator(nn.Module):
             idx = torch.randint(0, nb, (b,), generator=generator, device=dev)
             drop = torch.rand(b, 1, generator=generator, device=dev) < self.branch_dropout
             weight = shard.rows(branch_dropout_weight(idx, drop, nb))
-        noise = None
-        if self.max_add_noise_scale > 0.0:
-            scale = torch.rand(b, 1, 1, generator=generator, device=dev) * self.max_add_noise_scale
-            noise = shard.rows(torch.randn(b, n_frames, self.n_mels, generator=generator,
-                                           device=dev) * scale)
-        return FMDraws(x0, t, gates, weight, noise)
+        noise = self._cond_noise(b, n_frames, generator, dev)
+        return FMDraws(x0, t, gates, weight, None if noise is None else shard.rows(noise))
+
+    def _cond_noise(self, batch: int, n_frames: int, generator: torch.Generator,
+                    device) -> Optional[torch.Tensor]:
+        """The noise added to the conditioning in training, (batch, n_frames,
+        cond_dim), or None: none by default."""
+        return None
 
     def forward(self, cond: torch.Tensor, audio: torch.Tensor, audio_lens: torch.Tensor,
                 draws: FMDraws, count: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """FM loss. cond: (B, n_mels, frames); audio: (B, L); `count` as in
-        `compute_loss`."""
+        """FM loss. cond: the subclass's conditioning, frames on its last
+        axis; audio: (B, L); `count` as in `compute_loss`."""
         cond = self._encode_cond(cond, draws.cond_noise, draws.gates)
         return self.flow_matching_loss(draws.x0, audio, cond, audio_lens, t=draws.t,
                                        gates=draws.gates, branch_weight=draws.branch_weight,
@@ -345,21 +355,23 @@ class MelAudioGenerator(nn.Module):
 
     def _encode_cond(self, cond: torch.Tensor, cond_noise: Optional[torch.Tensor] = None,
                      gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-        cond = cond.transpose(-1, -2)  # (B, frames, n_mels)
-        if cond_noise is not None:
-            cond = cond + cond_noise
+        """The conditioning -> (B, frames, channels), channels-last and
+        encoded."""
+        raise NotImplementedError
+
+    def _cond_encoder(self, cond: torch.Tensor, gates: Optional[torch.Tensor]) -> torch.Tensor:
         return self.cond_encoder(cond, gates=gates) if self.cond_encoder is not None else cond
 
     def draw_rollout(self, batch: int, n_frames: int, n_timesteps: int,
                      generator: torch.Generator, train: bool = True,
                      shard: Shard = Shard()) -> RolloutDraws:
-        """The draws of one rollout of `batch` rows over `n_frames` mel
-        frames, from `generator` (on its device): x0 ~ N(0,
+        """The draws of one rollout of `batch` rows over `n_frames`
+        conditioning frames, from `generator` (on its device): x0 ~ N(0,
         init_noise_scale^2), then in training a Bernoulli(0.6) gate per
         limiter and step. The rows are `shard`'s of the global batch, whose
         x0 is drawn whole."""
         dev = generator.device
-        x0 = shard.rows(torch.randn(batch * shard.count, n_frames * self.mel_hop_length,
+        x0 = shard.rows(torch.randn(batch * shard.count, n_frames * self.cond_hop_length,
                                     generator=generator, device=dev) * self.init_noise_scale)
         if not train:
             return RolloutDraws(x0)
@@ -374,8 +386,8 @@ class MelAudioGenerator(nn.Module):
         n_timesteps: int = 1,
         remat: bool = False,
     ) -> torch.Tensor:
-        """The GAN stage's Euler solve from mels (B, n_mels, frames) to (B,
-        frames * mel_hop_length), unclamped: in train form when `draws` has
+        """The GAN stage's Euler solve from the conditioning (frames on its
+        last axis) to (B, frames * cond_hop_length), unclamped: in train form when `draws` has
         gates (differentiable through every step), else the eval form of
         `infer_from_noise`. Branch dropout and mel noise stay off, as the
         fine-tuning config sets them."""
@@ -393,10 +405,11 @@ class MelAudioGenerator(nn.Module):
         clamp_pred: bool = False,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Waveforms (B, frames * mel_hop_length) from mels (B, n_mels,
-        frames); x0 is drawn from `generator` (on cond's device)."""
+        """Waveforms (B, frames * cond_hop_length) from the conditioning
+        (frames on its last axis); x0 is drawn from `generator` (on cond's
+        device)."""
         noise = torch.randn(
-            cond.shape[0], cond.shape[-1] * self.mel_hop_length,
+            cond.shape[0], cond.shape[-1] * self.cond_hop_length,
             generator=generator, device=cond.device, dtype=torch.float32,
         ) * self.init_noise_scale
         return self.infer_from_noise(noise, cond, audio_lens, n_timesteps, clamp_pred)
@@ -415,3 +428,46 @@ class MelAudioGenerator(nn.Module):
         `api.get_model` calls), so matmuls and cuDNN convs run in IEEE float32.
         """
         return self.solve(noise, self._encode_cond(cond), audio_lens, n_timesteps, clamp_pred)
+
+
+class MelAudioGenerator(BaseAudioGenerator):
+    """Conditioned on log-mels (B, n_mels, frames): `cond_dim` is n_mels,
+    `cond_hop_length` the mel hop; `max_add_noise_scale` > 0 adds noise of
+    a per-example scale to the mels in training."""
+
+    def __init__(self, n_mels: int = 100, mel_hop_length: int = 256,
+                 max_add_noise_scale: float = 0.0, **kwargs):
+        super().__init__(cond_dim=n_mels, cond_hop_length=mel_hop_length, **kwargs)
+        self.n_mels = n_mels
+        self.mel_hop_length = mel_hop_length
+        self.max_add_noise_scale = max_add_noise_scale
+
+    def _cond_noise(self, batch, n_frames, generator, device):
+        if self.max_add_noise_scale <= 0.0:
+            return None
+        scale = torch.rand(batch, 1, 1, generator=generator, device=device) * self.max_add_noise_scale
+        return torch.randn(batch, n_frames, self.n_mels, generator=generator, device=device) * scale
+
+    def _encode_cond(self, cond, cond_noise=None, gates=None):
+        cond = cond.transpose(-1, -2)  # (B, frames, n_mels)
+        if cond_noise is not None:
+            cond = cond + cond_noise
+        return self._cond_encoder(cond, gates)
+
+
+class TokenAudioGenerator(BaseAudioGenerator):
+    """Conditioned on token ids (B, frames) in [0, vocab_size): an
+    embedding table of `cond_dim` channels feeds the cond encoder in place
+    of the mels; no conditioning noise. The table stays float32 under
+    `compute_dtype`, as flax's `Embed` does, and the cond encoder casts.
+    An id outside the table raises on the CPU and trips a device-side assert
+    on the card (the JAX package's lookup gives NaN or wraps), so callers
+    that take ids from users check them first (`api.VocoderModel.infer`)."""
+
+    def __init__(self, vocab_size: int = 1024, cond_dim: int = 256,
+                 token_hop_length: int = 256, **kwargs):
+        super().__init__(cond_dim=cond_dim, cond_hop_length=token_hop_length, **kwargs)
+        self.token_embed = nn.Embedding(vocab_size, cond_dim)
+
+    def _encode_cond(self, cond, cond_noise=None, gates=None):
+        return self._cond_encoder(self.token_embed(cond), gates)

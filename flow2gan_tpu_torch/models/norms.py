@@ -60,6 +60,11 @@ def limit_param_value(x: torch.Tensor, lo: float, hi: float,
     return LimitParamValue.apply(x, gate, float(lo), float(hi))
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """`x` in float32, or as it is in float64 (a float64 reference run)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class BiasNorm(nn.Module):
     """x * rsqrt(mean((x - bias)^2, channel)) * exp(log_scale), with the
     statistics in float32; log_scale is limited to [-1.5, 1.5] in training."""
@@ -78,7 +83,7 @@ class BiasNorm(nn.Module):
         if gates is not None:
             log_scale = limit_param_value(log_scale, self.log_scale_min, self.log_scale_max,
                                           gates[self.gate_index])
-        d = (x - self.bias).float()
+        d = at_least_float32(x - self.bias)
         scales = torch.rsqrt((d * d).mean(dim=-1, keepdim=True)) * torch.exp(log_scale)
         return x * scales.to(x.dtype)
 

@@ -120,7 +120,7 @@ def envelope(n_frames: int, n_fft: int, hop: int, device: torch.device) -> torch
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     """Onesided STFT of (B, L) -> complex64 (B, 1 + L // hop, n_fft//2 + 1)."""
-    window, C, S = _stft_consts(n_fft, x.device)
+    window, C, S = (c.to(x.dtype) for c in _stft_consts(n_fft, x.device))
     frames = frame_signal(x, n_fft, hop_length) * window
     return torch.complex(frames @ C, frames @ S)
 
@@ -147,7 +147,7 @@ def istft(
     `length` defaults to (n_frames - 1) * hop (the torch default); a longer
     one is zero-padded, a shorter one trimmed.
     """
-    window, A, B = _istft_consts(n_fft, spec.device)
+    window, A, B = (c.to(spec.real.dtype) for c in _istft_consts(n_fft, spec.device))
     n_frames = spec.shape[-2]
     frames = (spec.real @ A + spec.imag @ B) * window
     y = _overlap_add(frames, hop_length)
@@ -176,7 +176,7 @@ def istft_adjoint(grad: torch.Tensor, n_frames: int, n_fft: int, hop_length: int
     length gets no gradient. It is the oracle of the adjoint kernel
     (`ops/fused_istft.py`).
     """
-    window, A, B = _istft_consts(n_fft, grad.device)
+    window, A, B = (c.to(grad.dtype) for c in _istft_consts(n_fft, grad.device))
     default_len = (n_frames - 1) * hop_length
     out_len = min(grad.shape[-1], default_len)
     g = grad[:, :out_len] / envelope(n_frames, n_fft, hop_length, grad.device)[:out_len]

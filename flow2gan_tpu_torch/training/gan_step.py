@@ -14,7 +14,7 @@
 
 Each optimizer's Eden2 lr is read from its own update count, as in the JAX
 package. The draws of a step are one `RolloutDraws`, made by the caller
-(`MelAudioGenerator.draw_rollout`, or a test). The steps read nothing back
+(`BaseAudioGenerator.draw_rollout`, or a test). The steps read nothing back
 from the device: their metrics are device tensors. The JAX package's scanned
 rollout exists only for the TPU compiler and is not ported; `remat_rollout`
 recomputes each Euler step in backward instead of keeping its activations.
@@ -40,7 +40,7 @@ from flow2gan_tpu_torch.models.gan import (
     generator_loss,
     mel_recon_loss,
 )
-from flow2gan_tpu_torch.models.generator import MelAudioGenerator, RolloutDraws
+from flow2gan_tpu_torch.models.generator import BaseAudioGenerator, RolloutDraws
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 
@@ -61,16 +61,18 @@ class GANLossScales(NamedTuple):
 
 
 def make_gan_loss_fns(
-    generator: MelAudioGenerator,
+    generator: BaseAudioGenerator,
     discriminators: Discriminators,
-    mel_fn: Callable[[torch.Tensor], torch.Tensor],
+    cond_fn: Callable[[torch.Tensor], torch.Tensor],
     mel_recon_fns,
     n_timesteps: int = 1,
     scales: GANLossScales = GANLossScales(),
     remat_rollout: bool = False,
 ):
-    """The D and G objectives, each (batch, draws) -> (loss, metrics). The
-    D objective rolls out in eval form whatever `draws` holds; the G
+    """The D and G objectives, each (batch, draws) -> (loss, metrics), the
+    rollout conditioned on `cond_fn(audio)` (the log-mel, or the tokenizer
+    of a token config; the mel reconstruction loss keeps `mel_recon_fns`).
+    The D objective rolls out in eval form whatever `draws` holds; the G
     objective in the form `draws` gives (train form with gates)."""
 
     def fake_audio(batch: Batch, cond: torch.Tensor, draws: RolloutDraws, remat: bool):
@@ -80,7 +82,7 @@ def make_gan_loss_fns(
     def d_loss_fn(batch: Batch, draws: RolloutDraws) -> Tuple[torch.Tensor, Metrics]:
         audio = batch["audio"]
         with torch.no_grad():
-            fake = fake_audio(batch, mel_fn(audio), RolloutDraws(draws.x0), remat=False)
+            fake = fake_audio(batch, cond_fn(audio), RolloutDraws(draws.x0), remat=False)
         (real_mp, real_mr), (fake_mp, fake_mr) = discriminators.judge(audio), discriminators.judge(fake)
         disc_mp = discriminator_loss(real_mp[0], fake_mp[0])
         disc_mr = discriminator_loss(real_mr[0], fake_mr[0])
@@ -90,7 +92,7 @@ def make_gan_loss_fns(
     def g_loss_fn(batch: Batch, draws: RolloutDraws) -> Tuple[torch.Tensor, Metrics]:
         audio = batch["audio"]
         with torch.no_grad():
-            cond = mel_fn(audio)
+            cond = cond_fn(audio)
             real_mp, real_mr = discriminators.judge(audio)
         fake = fake_audio(batch, cond, draws, remat=remat_rollout)
         fake_mp, fake_mr = discriminators.judge(fake)
@@ -133,9 +135,9 @@ def _share(loss_fn, world: int):
 
 
 def make_gan_steps(
-    generator: MelAudioGenerator,
+    generator: BaseAudioGenerator,
     discriminators: Discriminators,
-    mel_fn: Callable[[torch.Tensor], torch.Tensor],
+    cond_fn: Callable[[torch.Tensor], torch.Tensor],
     mel_recon_fns,
     optimizer_g: ScaledAdam,
     optimizer_d: ScaledAdam,
@@ -151,7 +153,7 @@ def make_gan_steps(
     batch's on every rank."""
     world = dist.world_size()
     d_loss_fn, g_loss_fn = (_share(fn, world) for fn in make_gan_loss_fns(
-        generator, discriminators, mel_fn, mel_recon_fns, n_timesteps, scales, remat_rollout))
+        generator, discriminators, cond_fn, mel_recon_fns, n_timesteps, scales, remat_rollout))
     params_g = [p for g in optimizer_g.groups for p in g.params]
     params_d = [p for g in optimizer_d.groups for p in g.params]
 

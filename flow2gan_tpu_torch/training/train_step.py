@@ -1,6 +1,7 @@
 """The FM pretraining step and the validation loss, counterpart of
-`flow2gan_tpu/training/train_step.py`: the mel frontend, the loss with its
-draws, backward, the ScaledAdam update and the step's metrics.
+`flow2gan_tpu/training/train_step.py`: the conditioning frontend (the
+log-mel, or the tokenizer of a token config), the loss with its draws,
+backward, the ScaledAdam update and the step's metrics.
 
 Randomness: one `torch.Generator` per step on the model's device, seeded
 from (seed, batch index) by `step_generator`, the port's `fold_in`. The step
@@ -20,7 +21,7 @@ from typing import Callable, Dict
 
 import torch
 
-from flow2gan_tpu_torch.models.generator import MelAudioGenerator
+from flow2gan_tpu_torch.models.generator import BaseAudioGenerator
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 
@@ -30,7 +31,7 @@ def step_generator(seed: int, batch_idx: int, device: torch.device) -> torch.Gen
     return torch.Generator(device=device).manual_seed((seed * 1_000_003 + batch_idx) % 2**63)
 
 
-def _global_count(model: MelAudioGenerator, audio: torch.Tensor,
+def _global_count(model: BaseAudioGenerator, audio: torch.Tensor,
                   lens: torch.Tensor) -> torch.Tensor:
     """The loss denominator of the global batch (this rank's count where
     there is one rank)."""
@@ -40,20 +41,21 @@ def _global_count(model: MelAudioGenerator, audio: torch.Tensor,
 
 
 def fm_train_step(
-    model: MelAudioGenerator,
+    model: BaseAudioGenerator,
     optimizer: ScaledAdam,
-    mel_fn: Callable[[torch.Tensor], torch.Tensor],
+    cond_fn: Callable[[torch.Tensor], torch.Tensor],
     batch: Dict[str, torch.Tensor],
     lr: float,
     generator: torch.Generator,
 ) -> Dict[str, torch.Tensor]:
     """One step on `batch` ("audio" (B, L), "audio_lens" (B,), on the
-    model's device: this rank's rows of the global batch); returns the
+    model's device: this rank's rows of the global batch), conditioned on
+    `cond_fn(audio)`; returns the
     global loss and clip_scale (device tensors), the lr and this rank's
     sample count."""
     audio, lens = batch["audio"], batch["audio_lens"]
     with torch.no_grad():
-        cond = mel_fn(audio)
+        cond = cond_fn(audio)
     shard = dist.shard()
     draws = model.draw(audio, cond.shape[-1], generator, train=True, shard=shard)
     count = _global_count(model, audio, lens) if shard.count > 1 else None
@@ -69,15 +71,15 @@ def fm_train_step(
 
 @torch.no_grad()
 def fm_eval_loss(
-    model: MelAudioGenerator,
-    mel_fn: Callable[[torch.Tensor], torch.Tensor],
+    model: BaseAudioGenerator,
+    cond_fn: Callable[[torch.Tensor], torch.Tensor],
     batch: Dict[str, torch.Tensor],
     generator: torch.Generator,
 ) -> torch.Tensor:
     """Validation loss of the global batch: t and x0 drawn, the eval form
     otherwise (no gates, no branch dropout, no mel noise)."""
     audio, lens = batch["audio"], batch["audio_lens"]
-    cond = mel_fn(audio)
+    cond = cond_fn(audio)
     shard = dist.shard()
     draws = model.draw(audio, cond.shape[-1], generator, train=False, shard=shard)
     count = _global_count(model, audio, lens) if shard.count > 1 else None

@@ -14,6 +14,7 @@ from flow2gan_tpu.ops.mel import LogMelSpectrogram as JLogMel
 
 import flow2gan_tpu_torch
 from flow2gan_tpu_torch import api
+from flow2gan_tpu_torch.ops.tokenizer import MelKMeansTokenizer
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -46,8 +47,9 @@ def test_port_imports_no_jax():
         "flow2gan_tpu_torch.bin.infer_dir", "flow2gan_tpu_torch.models.discriminators",
         "flow2gan_tpu_torch.models.gan", "flow2gan_tpu_torch.training.gan_step",
         "flow2gan_tpu_torch.bin.finetune", "flow2gan_tpu_torch.parallel",
-        "flow2gan_tpu_torch.parallel.dist",
-    } <= set(modules) and len(modules) >= 35
+        "flow2gan_tpu_torch.parallel.dist", "flow2gan_tpu_torch.ops.tokenizer",
+        "flow2gan_tpu_torch.bin.train_tokenizer",
+    } <= set(modules) and len(modules) >= 37
 
 
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
@@ -87,8 +89,10 @@ def test_get_model_rejects_what_it_cannot_serve():
         api.get_model(hf_model_name="libritts-mel-1-step", device="cpu")
     with pytest.raises(ValueError, match="Unknown released model"):
         api.get_model(hf_model_name="libritts-mel-3-step", checkpoint="x.pt", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.get_model("token_24k_tiny", device="cpu")
+    # a token config takes only a codebook fit for its own frontend and vocabulary
+    wrong = MelKMeansTokenizer(np.zeros((64, 100), np.float32), 24000, 1024, 256, 100)
+    with pytest.raises(ValueError, match="mel_n_fft=1024, model config expects 256"):
+        api.get_model("token_24k_tiny", device="cpu", tokenizer=wrong)
     with pytest.raises(ValueError, match="Unsupported model name"):
         api.get_model("mel_99k", device="cpu")
 

@@ -34,7 +34,7 @@ import torch.distributed
 import torch.multiprocessing
 
 from flow2gan_tpu_torch.api import init_weights
-from flow2gan_tpu_torch.bin import finetune, pretrain
+from flow2gan_tpu_torch.bin import finetune, pretrain, train_tokenizer
 from flow2gan_tpu_torch.data import audio_io, dataset
 from flow2gan_tpu_torch.models import FMDraws, RolloutDraws, build_generator, get_generator_config
 from flow2gan_tpu_torch.models import discriminators as pd
@@ -155,20 +155,27 @@ def _gan_steps(spec) -> dict:
 
 def _trainer(spec) -> dict:
     """`bin/pretrain.py` or `bin/finetune.py` run in this rank, with every
-    checkpoint write recorded."""
-    writes = []
-    save = ckpt.save_checkpoint
+    checkpoint write recorded, and the parameters that the trainer's
+    equal-start check was given, as they are when the run ends."""
+    writes, replicated = [], []
+    save, check = ckpt.save_checkpoint, dist.assert_replicas_equal
 
     def recording(filename, *args, **kwargs):
         writes.append(Path(filename).name)
         return save(filename, *args, **kwargs)
 
+    def keeping(tensors, *args, **kwargs):
+        replicated.extend(tensors)
+        return check(tensors, *args, **kwargs)
+
     ckpt.save_checkpoint = recording
+    dist.assert_replicas_equal = keeping
     module = finetune if spec["trainer"] == "finetune" else pretrain
     pd.DiscriminatorP.CHANNELS = (8, 16, 16, 32, 32)
     finetune.Discriminators = lambda: pd.Discriminators((2, 3), (256, 128))
     history = module.run(module.get_parser().parse_args(spec["argv"]))
-    return {"writes": writes, "history": history}
+    return {"writes": writes, "history": history,
+            "params": [p.detach().clone() for p in replicated]}
 
 
 # ---------------------------------------------------------------- inputs
@@ -466,27 +473,48 @@ def _corpus(root: Path, n: int, seconds: float = 0.5, sr: int = 24000) -> Path:
     return manifest
 
 
-@pytest.mark.parametrize("trainer", ["pretrain", "finetune"])
+@pytest.mark.parametrize("trainer", ["pretrain", "finetune", "pretrain_tokens",
+                                     "finetune_tokens"])
 def test_trainers_as_two_ranks_write_on_rank_zero_only(tmp_path, trainer):
     """A global --batch-size of 4 as 2 ranks of 2: every rank logs the same
-    global loss, rank 0 writes every checkpoint (epoch-0, the batch
-    checkpoints, the epoch's) and the only log file, rank 1 writes nothing."""
+    global loss and ends with the same parameters, rank 0 writes every
+    checkpoint (epoch-0, the batch checkpoints, the epoch's) and the only
+    log file, rank 1 writes nothing. The `_tokens` cases run token_24k_tiny
+    with a codebook fit on the corpus: the embedding's gradient is
+    all-reduced with the rest, so the ranks' tables stay bitwise equal."""
     manifest = _corpus(tmp_path, 8)
     exp = tmp_path / "exp"
-    argv = ["--exp-dir", str(exp), "--model-name", "mel_24k_tiny", "--device", "cpu",
+    trainer, _, tokens = trainer.partition("_")
+    name = "token_24k_tiny" if tokens else "mel_24k_tiny"
+    argv = ["--exp-dir", str(exp), "--model-name", name, "--device", "cpu",
             "--train-recordings", str(manifest), "--valid-recordings", str(manifest),
             "--batch-size", "4", "--duration", "0.25", "--num-workers", "1", "--num-epochs", "1",
             "--save-every-n", "1", "--keep-last-k", "1", "--average-period", "1",
             "--valid-interval", "2"]
+    if tokens:
+        argv += ["--tokenizer", str(train_tokenizer.main([
+            "--model-name", "token_24k_tiny", "--recordings", str(manifest),
+            "--output", str(tmp_path / "codebook.npz"), "--iters", "4", "--device", "cpu"]))]
     if trainer == "finetune":
         init = tmp_path / "fm.pt"
-        torch.save(init_weights(build_generator(TINY), torch.Generator().manual_seed(9))
+        torch.save(init_weights(build_generator(get_generator_config(name)),
+                                torch.Generator().manual_seed(9))
                    .state_dict(), init)
         argv += ["--generator-model-path", str(init), "--n-timesteps", "2",
                  "--gen-start-batch-idx", "1"]
     ranks = _spawn(tmp_path, "_trainer", {"trainer": trainer, "argv": argv})
     assert [h["batch_idx_train"] for h in ranks[0]["history"]] == [1, 2]  # 8 recordings / 4
     assert [h["loss"] for h in ranks[0]["history"]] == [h["loss"] for h in ranks[1]["history"]]
+    assert len(ranks[0]["params"]) == len(ranks[1]["params"]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(ranks[0]["params"], ranks[1]["params"]))
+    if tokens:
+        table = ckpt.load_checkpoint(exp / "epoch-1.pt")["model"]
+        table = table["generator"] if trainer == "finetune" else table
+        first = ckpt.load_checkpoint(exp / "epoch-0.pt")["model"]
+        first = first["generator"] if trainer == "finetune" else first
+        assert table["token_embed.weight"].shape == (64, 24)
+        assert not torch.equal(table["token_embed.weight"], first["token_embed.weight"])
+        assert any(torch.equal(p, table["token_embed.weight"]) for p in ranks[1]["params"])
     assert ranks[0]["writes"] == ["epoch-0.pt", "checkpoint-1.pt", "checkpoint-2.pt",
                                   "epoch-1.pt"]
     assert ranks[1]["writes"] == []

@@ -381,7 +381,6 @@ def test_load_gan_clis_export_and_serve_the_generator(finetuned, tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,item", [
-    ("--tokenizer", "codebook.npz", "'The token family'"),
     ("--test-recordings", "test.jsonl", "'Observability'"),
     ("--print-diagnostics", "true", "'Observability'"),
     ("--inf-check", "true", "'Observability'"),

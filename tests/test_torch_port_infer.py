@@ -193,8 +193,9 @@ def test_infer_runs_the_windowed_average_over_a_manifest(tiny_ckpts, tmp_path):
         out, sr = audio_io.read_wav(out_dir / w.relative_to(root))
         assert sr == 24000 and out.shape[-1] == audio_io.read_wav(w)[0].shape[-1]
         assert np.isfinite(out).all() and np.abs(out).max() > 0
-    with pytest.raises(NotImplementedError, match="'The token family'"):
-        infer.main(["--tokenizer", "c.npz", "--recordings", str(man), "--output-dir",
+    # a token config reconstructs through its codebook, which it must be given
+    with pytest.raises(ValueError, match="token_24k_tiny is token-conditioned; pass --tokenizer"):
+        infer.main(["--model-name", "token_24k_tiny", "--recordings", str(man), "--output-dir",
                     str(out_dir), "--device", "cpu"])
 
 
@@ -228,10 +229,13 @@ def test_infer_dir_whole_chunked_and_mel(tiny_ckpts, tmp_path):
     out = infer_dir.main([*common, "--input-dir", str(mel_dir), "--output-dir",
                           str(tmp_path / "from_mel"), "--mel", "true"])
     assert [audio_io.read_wav(p)[0].shape for p in out] == [(1, 13 * 64), (1, 7 * 64)]
-    for flag in (["--tokens", "true"], ["--tokenizer", "c.npz"]):
-        with pytest.raises(NotImplementedError, match="'The token family'"):
-            infer_dir.main([*common, "--input-dir", str(mel_dir), "--output-dir",
-                            str(tmp_path / "x"), *flag])
+    # token files need a token config, and a codebook file must exist
+    with pytest.raises(ValueError, match="--tokens true needs a token_\\* config"):
+        infer_dir.main([*common, "--input-dir", str(mel_dir), "--output-dir",
+                        str(tmp_path / "x"), "--tokens", "true"])
+    with pytest.raises(FileNotFoundError, match="c.npz"):
+        infer_dir.main([*common, "--input-dir", str(mel_dir), "--output-dir",
+                        str(tmp_path / "x"), "--tokenizer", str(tmp_path / "c.npz")])
 
 
 # ------------------------------------------------------ the native reader

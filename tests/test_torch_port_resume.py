@@ -28,7 +28,7 @@ from flow2gan_tpu.data import dataset as j_dataset
 from flow2gan_tpu.utils import to_float_tuple
 
 import flow2gan_tpu_torch
-from flow2gan_tpu_torch.bin import finetune, pretrain
+from flow2gan_tpu_torch.bin import finetune, pretrain, train_tokenizer
 from flow2gan_tpu_torch.data import dataset
 from flow2gan_tpu_torch.models import discriminators as pd
 from flow2gan_tpu_torch.training import checkpoint as ckpt
@@ -189,19 +189,25 @@ def _equal(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch.equal(v, b[k]) for k, v in a.items())
 
 
-def test_pretrain_resume_from_reproduces_the_uninterrupted_run(tmp_path):
+def _codebook(root) -> str:
+    """A token_24k_tiny codebook fit on the corpus by bin/train_tokenizer."""
+    return str(train_tokenizer.main([
+        "--model-name", "token_24k_tiny", "--recordings", str(_corpus(root / "codebook")),
+        "--output", str(root / "codebook.npz"), "--iters", "4", "--device", "cpu"]))
+
+
+def _pretrain_resumed(root, extra):
     """Mid-epoch (epoch 2, after its first batch), with two weighted
     manifests: the resumed run draws the same loaders and losses as the
     straight run's tail, and ends with the same parameters, running average
-    and optimizer state, bit for bit. The loader choice equals JAX's; the
-    frozen cond encoder never moves; the scaled branch moves."""
-    extra = ["--freeze-modules", "cond_encoder", "--lr-scale-rules", "estimators_1=0.5"]
+    and optimizer state, bit for bit; the loader choice equals JAX's.
+    Returns both final checkpoints and the first."""
     # 4 and 2 recordings at batch 1: an epoch ends at the first draw of an
     # exhausted loader
     epochs = [_jax_choices(4, e, "1,3", (4, 2)) for e in (1, 2)]
     assert len(epochs[1]) >= 2  # so that checkpoint n1 + 1 lies inside epoch 2
     n1 = len(epochs[0])
-    runs, a, b = _resumed_equals_straight(pretrain, tmp_path, extra, resume_at=n1 + 1)
+    runs, a, b = _resumed_equals_straight(pretrain, root, extra, resume_at=n1 + 1)
     straight, resumed = runs["straight"], runs["resumed"]
     assert [h["dl"] for h in straight] == epochs[0] + epochs[1]
     assert [h["batch_idx_train"] for h in resumed] == list(range(n1 + 2, len(straight) + 1))
@@ -210,26 +216,53 @@ def test_pretrain_resume_from_reproduces_the_uninterrupted_run(tmp_path):
     assert _equal(a["model"], b["model"]) and _equal(a["model_avg"], b["model_avg"])
     for key in ("model_norms", "model_norm_threshold", "clip_scale"):
         assert torch.equal(a["optimizer"][key], b["optimizer"][key])
-    first = ckpt.load_checkpoint(tmp_path / "straight" / "epoch-0.pt")["model"]
+    return a, b, ckpt.load_checkpoint(root / "straight" / "epoch-0.pt")["model"]
+
+
+def test_pretrain_resume_from_reproduces_the_uninterrupted_run(tmp_path):
+    """`_pretrain_resumed` on mel_24k_tiny; the frozen cond encoder never
+    moves; the scaled branch moves."""
+    extra = ["--freeze-modules", "cond_encoder", "--lr-scale-rules", "estimators_1=0.5"]
+    a, b, first = _pretrain_resumed(tmp_path, extra)
     frozen = [k for k in first if k.startswith("cond_encoder.")]
     assert frozen and all(torch.equal(a["model"][k], first[k]) for k in frozen)
     assert all(not torch.equal(a["model"][k], first[k])
                for k in first if k.startswith("estimators.1.") and k.endswith("weight"))
 
 
+def test_pretrain_resume_from_reproduces_the_uninterrupted_run_on_tokens(tmp_path):
+    """`_pretrain_resumed` on token_24k_tiny with a codebook: the embedding
+    table trains and resumes bit for bit with the rest."""
+    a, b, first = _pretrain_resumed(tmp_path, ["--model-name", "token_24k_tiny",
+                                               "--tokenizer", _codebook(tmp_path)])
+    assert a["model"]["token_embed.weight"].shape == (64, 24)
+    assert not torch.equal(a["model"]["token_embed.weight"], first["token_embed.weight"])
+
+
 def test_finetune_resume_from_reproduces_the_uninterrupted_run(tmp_path, monkeypatch):
+    _finetune_resumed(tmp_path, monkeypatch, "mel_24k_tiny")
+
+
+def test_finetune_resume_from_reproduces_the_uninterrupted_run_on_tokens(tmp_path, monkeypatch):
+    _finetune_resumed(tmp_path, monkeypatch, "token_24k_tiny")
+
+
+def _finetune_resumed(tmp_path, monkeypatch, model):
     """Mid-epoch, inside the D/G alternation: the resumed run continues the
     alternation, the loaders and the losses, and ends with both sides'
     parameters and both optimizers' step counts equal to the straight
     run's; --freeze-modules cond_encoder leaves the generator's cond encoder
-    bitwise unchanged while the rest of it trains."""
+    bitwise unchanged while the rest of it trains (the token config's
+    embedding table among it)."""
     monkeypatch.setattr(pd.DiscriminatorP, "CHANNELS", (8, 16, 16, 32, 32))
     monkeypatch.setattr(finetune, "Discriminators", lambda: pd.Discriminators((2, 3), (256, 128)))
     init = tmp_path / "fm.pt"
-    torch.save(flow2gan_tpu_torch.get_model("mel_24k_tiny", device="cpu", seed=9)
+    torch.save(flow2gan_tpu_torch.get_model(model, device="cpu", seed=9)
                .module.state_dict(), init)
     extra = ["--generator-model-path", str(init), "--n-timesteps", "2",
              "--gen-start-batch-idx", "2", "--freeze-modules", "cond_encoder"]
+    if model.startswith("token"):
+        extra += ["--model-name", model, "--tokenizer", _codebook(tmp_path)]
     runs, a, b = _resumed_equals_straight(finetune, tmp_path, extra, resume_at=4)
     straight, resumed = runs["straight"], runs["resumed"]
     assert [h["side"] for h in straight[:4]] == ["D", "D", "G", "D"]

@@ -86,7 +86,6 @@ def test_pretrain_trains_tiny_on_cpu_and_its_average_serves(tmp_path):
 
 
 @pytest.mark.parametrize("flag,value,slice_", [
-    ("--tokenizer", "codebook.npz", "'The token family'"),
     ("--test-recordings", "test.jsonl", "'Observability'"),
     ("--save-infer-steps", "1", "'Observability'"),
     ("--print-diagnostics", "true", "'Observability'"),
