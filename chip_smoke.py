@@ -134,7 +134,27 @@ prints no result line):
       batches: every step's launches (D 12; G 12 and 12), losses;
    f. `bin/infer --tokenizer`, and `bin/infer_dir` with `--tokenizer` on
       wavs and `--tokens true` on their ids, whole and chunked;
-19. the `kernels` JSON line (each kernel's launches on every path, the
+19. observability, on mel_24k_base from phase 10's corpus and averaged
+   model:
+   a. `bin/pretrain.py` with `--tensorboard`, `--test-recordings` (4
+      files) at `--save-infer-steps 1,2,4`, `--profile-dir` and
+      `--inf-check`, 16 steps at batch 16 x 1.5 s, validating at batches
+      8 and 16: every step's launches and the run's; the event file read
+      back (framing, CRCs, the scalar, audio and image tags); the Chrome
+      trace's kernel events of batches 10-15 against the launches counted
+      there (18 and 18), the trace then deleted; `env_info` with the card's
+      name and `best_valid_loss` in every checkpoint; the median ms of the
+      steps that write nothing beside phase 10's;
+   b. `--inf-check` with the third batch's first row NaN: that step
+      clipped to zero, the dominant gradients and the first non-finite
+      module output named, no failed replay, training going on;
+   c. `--print-diagnostics` at batch 4 x 1 s: 5 batches, the tables of
+      each kind counted, the wall time, the launches;
+   d. `bin/finetune.py` at 4 Euler steps with the full discriminators, 16
+      batches with `--tensorboard`, `--test-recordings`, `--profile-dir`
+      and `--inf-check` (every step's launches, the event file, the trace
+      against the counted launches), then `--print-diagnostics` at batch 4;
+20. the `kernels` JSON line (each kernel's launches on every path, the
    data-parallel ones per rank), then the card line and the result line.
 """
 
@@ -148,6 +168,7 @@ import re
 import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -158,7 +179,7 @@ import torch
 import torch.distributed
 import torch.multiprocessing
 
-from flow2gan_tpu_torch import get_model
+from flow2gan_tpu_torch import get_model, utils_tb
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
 from flow2gan_tpu_torch.bin import (
     finetune,
@@ -280,7 +301,7 @@ TRAIN_STEPS = 32  # 2 epochs of a 256-recording corpus at batch 16
 TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
               "--keep-last-k", "1", "--average-period", "4", "--log-interval", "8",
-              "--valid-interval", "16", "--device", "cuda"]
+              "--valid-interval", "16", "--device", "cuda", "--tensorboard", "false"]
 
 
 def card_line() -> str:
@@ -938,7 +959,7 @@ def trainer(card: str, root: Path):
     print(f"trainer checkpoints: epoch-2 and checkpoint-{steps} reload; averaged model "
           f"{out.name} serves a 1-step call of {tuple(wav.shape)}, finite, 3 launches")
     profile_train_step(card, med)
-    return launches, exp, out
+    return launches, exp, out, med
 
 
 def bf16_vocoder(device: str) -> VocoderModel:
@@ -1071,7 +1092,7 @@ def bf16_trainer(card: str, root: Path) -> dict:
         "--duration", "1.5", "--num-epochs", "1", "--num-workers", "4", "--seed", "0",
         "--save-every-n", "1000", "--average-period", "4", "--log-interval", "4",
         "--valid-interval", "4", "--device", "cuda", "--exp-dir", str(exp),
-        "--train-recordings", str(half),
+        "--tensorboard", "false", "--train-recordings", str(half),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     fused.launches = fused.adjoint_launches = 0
@@ -1363,7 +1384,7 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
         "--gen-start-batch-idx", str(GAN_WARMUP), "--save-every-n", "1000", "--keep-last-k", "1",
         "--average-period", "4", "--log-interval", "8", "--valid-interval", "16",
         "--device", "cuda", "--exp-dir", str(exp), "--generator-model-path", str(averaged),
-        "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
+        "--tensorboard", "false", "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     fused.launches = fused.adjoint_launches = 0
@@ -1574,13 +1595,24 @@ def rank_entry(rank: int, world: int, out_dir: str, fn_name: str, spec: dict) ->
         dist.destroy()
 
 
-def spawn_ranks(world: int, fn_name: str, spec: dict, out: Path) -> list:
+def spawn_ranks(world: int, fn_name: str, spec: dict, out: Path, tries: int = 3) -> list:
     """Run `fn_name(spec)` in `world` spawned processes; their results in
-    rank order."""
-    shutil.rmtree(out, ignore_errors=True)
-    out.mkdir(parents=True)
-    torch.multiprocessing.spawn(rank_entry, args=(world, str(out), fn_name,
-                                                  {**spec, "port": free_port()}), nprocs=world)
+    rank order. The rendezvous port is free when it is picked, but another
+    socket can take it before rank 0 listens on it (the ranks start seconds
+    later): then the ranks are spawned again on a new port, at most `tries`
+    times in all."""
+    for attempt in range(tries):
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        try:
+            torch.multiprocessing.spawn(rank_entry, args=(world, str(out), fn_name,
+                                                          {**spec, "port": free_port()}),
+                                        nprocs=world)
+            break
+        except torch.multiprocessing.ProcessRaisedException as e:
+            if "EADDRINUSE" not in str(e) or attempt == tries - 1:
+                raise
+            print(f"spawn_ranks: the rendezvous port was taken; spawning again ({e})".splitlines()[0])
     results = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
     shutil.rmtree(out, ignore_errors=True)
     return results
@@ -1820,7 +1852,7 @@ def data_parallel_trainer(card: str, root: Path) -> dict:
             "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "3",
             "--keep-last-k", "1", "--average-period", "2", "--log-interval", "2",
             "--valid-interval", "0", "--device", device, "--exp-dir", str(exp),
-            "--train-recordings", str(manifest)]
+            "--tensorboard", "false", "--train-recordings", str(manifest)]
     steps = len(recs) // DIST_BATCH
     start = time.perf_counter()
     ranks = spawn_ranks(DIST_WORLD, "dist_trainer_rank",
@@ -1906,7 +1938,8 @@ def resume_phase(card: str, root: Path, averaged: Path) -> None:
     common = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "2",
               "--keep-last-k", "2", "--average-period", "2", "--log-interval", "2",
-              "--valid-interval", "0", "--device", "cuda", "--train-recordings", str(manifest)]
+              "--valid-interval", "0", "--device", "cuda", "--tensorboard", "false",
+              "--train-recordings", str(manifest)]
     runs = {"pretrain": resume_runs(root, pretrain, "fm", common, 2),
             "finetune": resume_runs(root, finetune, "gan", common + [
                 "--n-timesteps", str(GAN_STEPS), "--gen-start-batch-idx", "2",
@@ -2078,7 +2111,7 @@ def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
         "--duration", "1.5", "--num-epochs", "1", "--num-workers", "4", "--seed", "0",
         "--save-every-n", "1000", "--average-period", "4", "--log-interval", "4",
         "--valid-interval", "4", "--device", "cuda", "--exp-dir", str(exp),
-        "--train-recordings", str(root / "train_half.jsonl.gz"),
+        "--tensorboard", "false", "--train-recordings", str(root / "train_half.jsonl.gz"),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     fused.launches = fused.adjoint_launches = 0
@@ -2123,7 +2156,7 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
         "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--gen-start-batch-idx", "2",
         "--save-every-n", "1000", "--keep-last-k", "1", "--average-period", "4",
         "--log-interval", "4", "--valid-interval", "0", "--device", "cuda",
-        "--exp-dir", str(exp), "--generator-model-path", str(averaged),
+        "--exp-dir", str(exp), "--generator-model-path", str(averaged), "--tensorboard", "false",
         "--train-recordings", str(root / "train_half.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     fused.launches = fused.adjoint_launches = 0
@@ -2233,6 +2266,333 @@ def token_family(card: str, root: Path) -> dict:
             "cli": cli_launches}
 
 
+# ------------------------------------------------------- observability (19)
+
+OBS_STEPS = 16  # one epoch of phase 10's corpus at batch 16
+OBS_WINDOW = (10, 15)  # the global batches that --profile-dir traces
+
+
+def _varint(buf: bytes, i: int):
+    n = shift = 0
+    while True:
+        b = buf[i]
+        n |= (b & 0x7F) << shift
+        i, shift = i + 1, shift + 7
+        if b < 0x80:
+            return n, i
+
+
+def _fields(buf: bytes):
+    """(field number, value) of a protobuf message: ints, or bytes."""
+    i = 0
+    while i < len(buf):
+        key, i = _varint(buf, i)
+        wire = key & 7
+        if wire == 0:
+            value, i = _varint(buf, i)
+        elif wire in (1, 5):
+            value, i = buf[i:i + (8 if wire == 1 else 4)], i + (8 if wire == 1 else 4)
+        elif wire == 2:
+            n, i = _varint(buf, i)
+            value, i = buf[i:i + n], i + n
+        else:
+            raise AssertionError(f"protobuf wire type {wire}")
+        yield key >> 3, value
+
+
+def read_event_tags(path: Path) -> dict:
+    """Each tag of a TensorBoard event file with the kinds of value written
+    under it ("scalar", "image", "audio"): the TFRecord framing and both
+    CRCs of every record checked, the first record the file version."""
+    data, pos, tags, first = path.read_bytes(), 0, {}, True
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        n = struct.unpack("<Q", header)[0]
+        body = data[pos + 12:pos + 12 + n]
+        crcs = struct.unpack("<I", data[pos + 8:pos + 12]) + struct.unpack(
+            "<I", data[pos + 12 + n:pos + 16 + n])
+        if crcs != (utils_tb.masked_crc32c(header), utils_tb.masked_crc32c(body)):
+            raise AssertionError(f"{path.name}: a record at byte {pos} fails its CRC")
+        pos += 16 + n
+        event = dict(_fields(body))
+        if first and event.get(3) != b"brain.Event:2":
+            raise AssertionError(f"{path.name} does not start with the file version")
+        first = False
+        for _, value in _fields(event.get(5, b"")):
+            value = dict(_fields(value))
+            kind = {2: "scalar", 4: "image", 6: "audio"}[next(k for k in value if k != 1)]
+            tags.setdefault(value[1].decode(), set()).add(kind)
+    return tags
+
+
+def trace_launches(trace_dir: Path) -> tuple:
+    """(forward, adjoint) kernel events in the one Chrome trace that
+    --profile-dir wrote; the trace is deleted once read."""
+    (path,) = trace_dir.glob("trace-*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    shutil.rmtree(trace_dir)
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return (sum("fused_istft" in n and "fused_istft_adjoint" not in n for n in names),
+            sum("fused_istft_adjoint" in n for n in names))
+
+
+def trainer_log(exp: Path) -> list:
+    """The messages of a trainer run's log file."""
+    (path,) = (exp / "log").glob("log-train-*")
+    return [line.split("] ", 1)[1] for line in path.read_text().splitlines() if "] " in line]
+
+
+def check_env_info(card_name: str, *paths: Path) -> None:
+    for path in paths:
+        saved = ckpt.load_checkpoint(path)
+        if saved["env_info"]["device-name"] != card_name or "best_valid_loss" not in saved:
+            raise AssertionError(f"{path.name}: env_info {saved['env_info']}, keys {sorted(saved)}")
+
+
+def window_launches(calls: list, kinds=("FM", "D", "G")) -> tuple:
+    """(forward, adjoint) launches of the training steps of global batches
+    OBS_WINDOW (the steps' calls are one per batch, in order; validation
+    calls are left out)."""
+    steps = [c for c in calls if c[0] in kinds]
+    window = steps[OBS_WINDOW[0] - 1:OBS_WINDOW[1]]
+    return sum(c[1] for c in window), sum(c[2] for c in window)
+
+
+def observability_pretrain(card: str, root: Path, test: Path, base_step_ms: float) -> dict:
+    """19a: bin/pretrain.py on mel_24k_base with --tensorboard, --test-recordings
+    (4 files) at --save-infer-steps 1,2,4, --profile-dir and --inf-check for
+    16 steps at batch 16 x 1.5 s, validating at batches 8 and 16 (outside
+    the profiled window)."""
+    exp, prof = root / "exp_obs", root / "obs_profile"
+    args = pretrain.get_parser().parse_args([
+        "--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
+        "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "8",
+        "--keep-last-k", "1", "--average-period", "4", "--log-interval", "8",
+        "--valid-interval", "8", "--device", "cuda", "--exp-dir", str(exp),
+        "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
+        "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz"),
+        "--test-recordings", str(test), "--save-infer-steps", "1,2,4",
+        "--profile-dir", str(prof), "--inf-check", "true", "--tensorboard", "true"])
+    fused.launches = fused.adjoint_launches = 0
+    start = time.perf_counter()
+    history, calls = run_counting_steps(pretrain, "fm_train_step", args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = (fused.launches, fused.adjoint_launches)
+    # each validation: one batch of 16 (3 launches), then the 4 test files
+    # synthesised at 1, 2 and 4 steps (3 launches a step)
+    expected = (3 * OBS_STEPS + 2 * (3 + 3 * (1 + 2 + 4)), 3 * OBS_STEPS)
+    if len(history) != OBS_STEPS or set(calls) != {("FM", 3, 3)} or launches != expected:
+        raise AssertionError(f"19a: {len(history)} steps, {set(calls)}, launches {launches} "
+                             f"against {expected}")
+    window, traced = window_launches(calls), trace_launches(prof)
+    if window != (18, 18) or traced != window:
+        raise AssertionError(f"19a: the profiled window launched {window}, its trace holds {traced}")
+    (events,) = (exp / "tensorboard").glob("events.out.tfevents.*")
+    tags = read_event_tags(events)
+    audio = {f"valid/test_audio_{i}_{k}" for i in range(4) for k in ("gt", "step_1", "step_2",
+                                                                     "step_4")}
+    want = {**{t: {"scalar"} for t in ("train/current_loss_0", "train/learning_rate",
+                                       "train/tot_loss_0_loss", "train/valid_loss")},
+            **{t: {"audio"} for t in audio}, **{f"{t}_spec": {"image"} for t in audio}}
+    if tags != want:
+        raise AssertionError(f"19a: event tags {sorted(tags)} against {sorted(want)}")
+    check_env_info(torch.cuda.get_device_name(0), exp / "epoch-0.pt", exp / "epoch-1.pt",
+                   exp / f"checkpoint-{OBS_STEPS}.pt")
+    best = ckpt.load_checkpoint(exp / "epoch-1.pt")["best_valid_loss"]
+    if not math.isfinite(best) or any(h["clip_scale"] != 1.0 for h in history):
+        raise AssertionError(f"19a: best_valid_loss {best}, clip {[h['clip_scale'] for h in history]}")
+    # the steps that write nothing: not the first two (allocation), not a
+    # log, validation or checkpoint step (8, 16), not the profiled window
+    quiet = [h["ms"] for h in history[2:] if h["batch_idx_train"] % 8
+             and not OBS_WINDOW[0] <= h["batch_idx_train"] <= OBS_WINDOW[1]]
+    shutil.rmtree(exp)
+    out = {"steps": len(history), "launches": launches, "profiled_window": window,
+           "trace_kernel_events": traced, "event_tags": len(tags), "best_valid_loss": best,
+           "quiet_step_ms": quiet, "quiet_step_ms_median": statistics.median(quiet),
+           "phase_10_step_ms_median": base_step_ms,
+           "extra_ms_per_quiet_step": statistics.median(quiet) - base_step_ms,
+           "run_wall_s": wall_s, "card": card}
+    print("observability pretrain " + json.dumps(out))
+    return out
+
+
+def observability_inf_check(card: str, root: Path) -> tuple:
+    """19b: 4 steps with --inf-check, the third batch's first row NaN: the
+    step is clipped to zero, the warnings name the dominant gradients and
+    the first module whose output was not finite, the replay does not
+    fail, and training goes on."""
+    recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:64]
+    manifest = root / "obs_inf.jsonl.gz"
+    write_recording_manifest(recs, manifest)
+    exp = root / "exp_inf"
+    args = pretrain.get_parser().parse_args([
+        "--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
+        "--num-epochs", "1", "--num-workers", "4", "--seed", "0", "--save-every-n", "1000",
+        "--log-interval", "1", "--valid-interval", "0", "--device", "cuda", "--exp-dir", str(exp),
+        "--tensorboard", "false", "--inf-check", "true", "--train-recordings", str(manifest)])
+    step, seen = pretrain.fm_train_step, []
+
+    def poisoned(model, optimizer, cond_fn, batch, *rest):
+        seen.append(1)
+        if len(seen) == 3:
+            batch["audio"][0] = float("nan")
+        return step(model, optimizer, cond_fn, batch, *rest)
+
+    fused.launches = fused.adjoint_launches = 0
+    pretrain.fm_train_step = poisoned
+    try:
+        history = pretrain.run(args)
+    finally:
+        pretrain.fm_train_step = step
+    torch.cuda.synchronize()
+    launches = (fused.launches, fused.adjoint_launches)
+    log = trainer_log(exp)
+    dominant = [m for m in log if m.startswith("Dominant grad: ")]
+    modules = [m for m in log if m.startswith("The output of module ")]
+    clips = [h["clip_scale"] for h in history]
+    if (clips != [1.0, 1.0, 0.0, 1.0] or math.isfinite(history[2]["loss"])
+            or not all(math.isfinite(h["loss"]) for h in history[3:])):
+        raise AssertionError(f"19b: clip_scale {clips}, losses {[h['loss'] for h in history]}")
+    first = "The output of module cond_encoder.in_proj is not finite"
+    if not dominant or not modules or modules[0] != first or any("replay failed" in m for m in log):
+        raise AssertionError(f"19b: warnings {dominant[:2]} {modules[:2]}")
+    # 4 steps, and the replay's eval-form forward on the poisoned batch
+    if launches != (3 * 4 + 3, 3 * 4):
+        raise AssertionError(f"19b: launches {launches}")
+    shutil.rmtree(exp)
+    print("observability inf-check " + json.dumps({
+        "clip_scale": clips, "dominant": dominant[:3], "first_module": modules[0],
+        "modules_named": len(modules), "launches": launches, "card": card}))
+    return launches
+
+
+def diagnostics_tables(log: list) -> dict:
+    """The number of tables of each kind that --print-diagnostics printed."""
+    names = [m.split("]: ")[0][len("Diagnostics ["):] for m in log if m.startswith("Diagnostics [")]
+    return {"forward": sum(not n.startswith("param/") and not n.endswith(".grad") for n in names),
+            "output_grad": sum(n.endswith(".grad") for n in names),
+            "param": sum(n.startswith("param/") and not n.endswith(".param_grad") for n in names),
+            "param_grad": sum(n.endswith(".param_grad") for n in names),
+            "scalar_histograms": sum(m.startswith("ScalarDiagnostics [") for m in log),
+            "report_lines": sum(m.startswith("module=") for m in log)}
+
+
+def observability_diagnostics(card: str, root: Path, module, argv: list, expected: tuple,
+                              label: str) -> dict:
+    """19c (and the fine-tuner's in 19d): --print-diagnostics at batch 4 x
+    1 s: 5 batches, the tables, the PReLU histograms, exit; the tables of
+    each kind counted, the pass's wall time and its launches."""
+    exp = root / f"exp_diag_{label}"
+    args = module.get_parser().parse_args(argv + [
+        "--batch-size", "4", "--duration", "1.0", "--num-epochs", "1", "--num-workers", "4",
+        "--seed", "0", "--save-every-n", "1000", "--log-interval", "1", "--valid-interval", "0",
+        "--device", "cuda", "--exp-dir", str(exp), "--tensorboard", "false",
+        "--print-diagnostics", "true",
+        "--train-recordings", str(root / "train" / "recordings.jsonl.gz")])
+    fused.launches = fused.adjoint_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    history = module.run(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    launches = (fused.launches, fused.adjoint_launches)
+    log = trainer_log(exp)
+    tables = diagnostics_tables(log)
+    if (len(history) != 5 or log[-1] != "Diagnostics done, exiting" or launches != expected
+            or not all(tables.values()) or (exp / "epoch-1.pt").exists()):
+        raise AssertionError(f"19 diagnostics {label}: {len(history)} batches, launches "
+                             f"{launches} against {expected}, tables {tables}, last {log[-1:]}")
+    shutil.rmtree(exp)
+    out = {"trainer": label, "batches": len(history), "tables": tables, "run_wall_s": wall_s,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+           "card": card}
+    print("observability diagnostics " + json.dumps(out))
+    return out
+
+
+def observability_finetune(card: str, root: Path, test: Path, averaged: Path) -> dict:
+    """19d: bin/finetune.py at 4 Euler steps with the full discriminators
+    for 16 batches (D-only to batch 2) with --tensorboard, --test-recordings,
+    --profile-dir and --inf-check, every step's launches checked; then
+    --print-diagnostics at batch 4."""
+    exp, prof = root / "exp_obs_gan", root / "obs_gan_profile"
+    args = finetune.get_parser().parse_args([
+        "--model-name", "mel_24k_base", "--n-timesteps", str(GAN_STEPS), "--batch-size", "16",
+        "--duration", "1.5", "--num-epochs", "1", "--num-workers", "4", "--seed", "0",
+        "--gen-start-batch-idx", "2", "--save-every-n", "1000", "--keep-last-k", "1",
+        "--average-period", "4", "--log-interval", "8", "--valid-interval", "8",
+        "--device", "cuda", "--exp-dir", str(exp), "--generator-model-path", str(averaged),
+        "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
+        "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz"),
+        "--test-recordings", str(test), "--profile-dir", str(prof), "--inf-check", "true",
+        "--tensorboard", "true"])
+    fused.launches = fused.adjoint_launches = 0
+    start = time.perf_counter()
+    history, calls = run_counting_steps(finetune, "make_gan_steps", args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    n = 3 * GAN_STEPS
+    per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G", "eval")}
+    counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
+    sides = "".join(h["side"] for h in history)
+    # the test samples: 4 files at GAN_STEPS steps after each of 2 validations
+    launches = (fused.launches, fused.adjoint_launches)
+    expected = (n * len(calls) + 2 * n, n * counts["G"])
+    if (sides != "DD" + "GD" * 7 or per_kind != {"D": [(n, 0)], "G": [(n, n)], "eval": [(n, 0)]}
+            or counts["eval"] != 2 or launches != expected):
+        raise AssertionError(f"19d: sides {sides}, per step {per_kind}, {counts}, launches "
+                             f"{launches} against {expected}")
+    window, traced = window_launches(calls), trace_launches(prof)
+    if window != (6 * n, 3 * n) or traced != window:
+        raise AssertionError(f"19d: the profiled window launched {window}, its trace holds {traced}")
+    (events,) = (exp / "tensorboard").glob("events.out.tfevents.*")
+    tags = read_event_tags(events)
+    want_scalars = {f"train/{k}" for k in (*finetune._D_METRICS, *finetune._G_METRICS, "lr_d",
+                                            "lr_g", "clip_scale", "valid_loss_g",
+                                            "valid_mel_recon_loss")}
+    audio = {f"valid/test_audio_{i}_{k}" for i in range(4) for k in ("gt", f"step_{GAN_STEPS}")}
+    want = {**{t: {"scalar"} for t in want_scalars}, **{t: {"audio"} for t in audio},
+            **{f"{t}_spec": {"image"} for t in audio}}
+    if tags != want:
+        raise AssertionError(f"19d: event tags {sorted(tags)} against {sorted(want)}")
+    saved = ckpt.load_checkpoint(exp / "epoch-1.pt")["env_info"]
+    if saved["device-name"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"19d: env_info {saved}")
+    if not all(math.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"19d: losses {[h['loss'] for h in history]}")
+    shutil.rmtree(exp)
+    by_kind = launches_by_kind(calls)
+    out = {"batches": len(history), "sides": sides, "launches": launches,
+           "d_steps": by_kind["D"], "g_steps": by_kind["G"], "validation": by_kind["eval"],
+           "profiled_window": window, "trace_kernel_events": traced, "event_tags": len(tags),
+           "clip_scale": [h["clip_scale"] for h in history], "run_wall_s": wall_s, "card": card}
+    print("observability finetune " + json.dumps(out))
+    # 5 diagnostics batches, D D G D G: each a step, an eval-form rollout
+    # (n) and the G objective through the train-form rollout (n and n)
+    diag = observability_diagnostics(
+        card, root, finetune, ["--model-name", "mel_24k_base", "--n-timesteps", str(GAN_STEPS),
+                               "--gen-start-batch-idx", "2", "--generator-model-path",
+                               str(averaged)],
+        (5 * 3 * n, 5 * n + 2 * n), "finetune")
+    return {**out, "diagnostics": diag}
+
+
+def observability(card: str, root: Path, averaged: Path, base_step_ms: float) -> dict:
+    """Phase 19 on mel_24k_base, from phase 10's corpus and averaged model."""
+    test = root / "obs_test.jsonl.gz"
+    write_recording_manifest(read_recording_manifest(root / "valid" / "recordings.jsonl.gz")[:4],
+                             test)
+    pre = observability_pretrain(card, root, test, base_step_ms)
+    inf = observability_inf_check(card, root)
+    # 5 batches: each a step (3, 3), the eval-form loss (3) and the train-form
+    # loss's forward and backward (3, 3)
+    diag = observability_diagnostics(card, root, pretrain, ["--model-name", "mel_24k_base"],
+                                     (5 * 9, 5 * 6), "pretrain")
+    gan = observability_finetune(card, root, test, averaged)
+    return {"pretrain": pre, "inf_check": inf, "diagnostics": diag, "finetune": gan}
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2308,7 +2668,7 @@ def main() -> int:
     discriminators_card_vs_cpu(card)
     gan_grad_launches = gan_grads_card_vs_cpu(card)
     root = Path(__file__).resolve().parent / "build" / "smoke_train"
-    train_launches, exp, averaged = trainer(card, root)
+    train_launches, exp, averaged, train_step_ms = trainer(card, root)
     bf16_train_launches = bf16_trainer(card, root)
     cli_launches = clis(card, root, exp, averaged)
     for path in [*exp.glob("*.pt"), *(root / "exp_bf16").glob("*.pt")]:
@@ -2322,6 +2682,7 @@ def main() -> int:
     dp_train = data_parallel_trainer(card, root)
     resume_phase(card, root, averaged)
     tokens = token_family(card, root)
+    obs = observability(card, root, averaged, train_step_ms)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
     dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
                 "gan_g_step_2_ranks_per_rank": 2,
@@ -2339,6 +2700,18 @@ def main() -> int:
         "token_finetune_d_steps": tokens["gan"]["d_steps"],
         "token_finetune_g_steps": tokens["gan"]["g_steps"],
         **{f"token_cli_{k}": v for k, v in tokens["cli"].items()}}
+    obs_paths = {
+        f"observability_pretrain_{OBS_STEPS}_steps": obs["pretrain"]["launches"],
+        "observability_pretrain_profiled_window_10_15": obs["pretrain"]["profiled_window"],
+        "observability_inf_check_poisoned_4_steps": obs["inf_check"],
+        "observability_diagnostics_pretrain_5_batches": obs["diagnostics"]["launches"],
+        f"observability_finetune_{OBS_STEPS}_batches": obs["finetune"]["launches"],
+        "observability_finetune_d_steps": obs["finetune"]["d_steps"],
+        "observability_finetune_g_steps": obs["finetune"]["g_steps"],
+        "observability_finetune_validation": obs["finetune"]["validation"],
+        "observability_finetune_profiled_window_10_15": obs["finetune"]["profiled_window"],
+        "observability_diagnostics_finetune_5_batches":
+            obs["finetune"]["diagnostics"]["launches"]}
 
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
     train_step = adjoint_shapes[-3:]  # the three branches of one training step
@@ -2364,7 +2737,8 @@ def main() -> int:
             "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
             "cli_infer_load_gan_4_steps": gan_cli_launches,
             **{k: dp_launches[i][0] for k, i in dp_paths.items()},
-            **{k: v[0] for k, v in token_paths.items()}},
+            **{k: v[0] for k, v in token_paths.items()},
+            **{k: v[0] for k, v in obs_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in shapes + reference_batches["istft"]),
         "max_rel_err": max(s["max_rel_err"] for s in shapes + reference_batches["istft"]),
         "ms": sum(s["ms"] for s in step),
@@ -2394,7 +2768,8 @@ def main() -> int:
                              "gan_g_step_plain": remat_launches["plain"][1],
                              "gan_g_step_remat": remat_launches["remat"][1],
                              **{k: dp_launches[i][1] for k, i in dp_paths.items()},
-                             **{k: v[1] for k, v in token_paths.items()}},
+                             **{k: v[1] for k, v in token_paths.items()},
+                             **{k: v[1] for k, v in obs_paths.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "ms": sum(s["ms"] for s in train_step),

@@ -148,7 +148,9 @@ def get_model(
     With `checkpoint=None` the weights are a random init drawn from `seed`;
     otherwise `checkpoint` is a `.pt` file: the port's own `state_dict`, a
     trainer checkpoint, or a checkpoint in the reference's naming (a released
-    model), told apart by their names (`compat.from_reference`).
+    model), told apart by their names (`compat.from_reference`); or a `.ckpt`
+    file the JAX package wrote: its params, a trainer checkpoint, or a GAN
+    checkpoint, whose generator is taken. Every file loads strictly.
     `hf_model_name` names a released model: it picks the config and the
     n_timesteps the model was tuned for, and needs the file itself as
     `checkpoint`, since the port downloads nothing. `device` defaults to

@@ -35,8 +35,16 @@ gradients over the ranks:
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m flow2gan_tpu_torch.bin.finetune --batch-size 64 ...
 
-A flag that is not ported yet raises and names the item of ROADMAP.md that
-ports it; it is never ignored.
+Observability as in `bin/pretrain.py`, for the side that stepped:
+`--tensorboard` (on by default; every metric of the batch at the log
+interval and the one after it, the validation, and the test samples at
+`--n-timesteps`), `--profile-dir` (batches 10-15), `--inf-check` (the
+dominant gradients of whichever side was clipped to zero, the D or the G
+step keeping its gradients for it, and the non-finite generator outputs of
+an eval-form rollout) and `--print-diagnostics` (the generator's tables
+over 5 batches through the G objective's train-form rollout, without
+`--remat-rollout`, whose recompute would run the hooks again; then exit).
+Every checkpoint holds `env_info`.
 """
 
 from __future__ import annotations
@@ -45,44 +53,42 @@ import argparse
 import logging
 import time
 from pathlib import Path
-from typing import List
+from typing import List, Optional
 
 import torch
 
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.bin.pretrain import (
-    OBSERVABILITY,
+    DIAGNOSTIC_BATCHES,
+    ProfileWindow,
     _to_device,
     build_loaders,
-    check_ported,
     epoch_sampler,
+    load_test_batch,
+    log_dominant_grads,
     lr_scales,
+    open_tensorboard,
+    print_diagnostics,
     resume_checkpoint,
+    save_test_samples,
     start_run,
 )
 from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.models import build_generator, get_gan_config, get_generator_config
 from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
 from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
+from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
 from flow2gan_tpu_torch.ops.stft import num_frames
 from flow2gan_tpu_torch.ops.tokenizer import conditioning_frontend
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training import checkpoint as ckpt
-from flow2gan_tpu_torch.training.gan_step import GANLossScales, make_gan_steps
-from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard
+from flow2gan_tpu_torch.training.diagnostics import DiagnosticsCollector
+from flow2gan_tpu_torch.training.env import get_env_info
+from flow2gan_tpu_torch.training.gan_step import GANLossScales, make_gan_loss_fns, make_gan_steps
+from flow2gan_tpu_torch.training.hooks import NonfiniteLossGuard, find_nonfinite_module_outputs
 from flow2gan_tpu_torch.training.optim import ScaledAdam, eden2_lr
 from flow2gan_tpu_torch.training.train_step import step_generator
 from flow2gan_tpu_torch.utils import MetricsTracker, str2bool
-
-# flags of the JAX trainer that the port does not run yet: (attribute, its
-# default, the ROADMAP.md item that ports it)
-_LATER = (
-    ("test_recordings", None, OBSERVABILITY + " (TensorBoard sample dumps)"),
-    ("print_diagnostics", False, OBSERVABILITY),
-    ("inf_check", False, OBSERVABILITY),
-    ("tensorboard", False, OBSERVABILITY),
-    ("profile_dir", None, OBSERVABILITY),
-)
 _G_METRICS = ("loss_g", "gen_loss_mp", "gen_loss_mr", "feat_map_loss_mp", "feat_map_loss_mr",
               "mel_recon_loss")
 _D_METRICS = ("loss_d", "disc_loss_mp", "disc_loss_mr")
@@ -120,7 +126,10 @@ def get_parser():
     parser.add_argument("--train-dls-weights", type=str, default=None,
                         help="CSV of sampling weights, one per --train-recordings manifest")
     parser.add_argument("--valid-recordings", type=str, required=False)
-    parser.add_argument("--test-recordings", type=str, required=False, help="not ported yet")
+    parser.add_argument("--test-recordings", type=str, required=False,
+                        help="recordings.jsonl[.gz] manifest of whole test files dumped to "
+                        "TensorBoard at --n-timesteps at each validation; else the first "
+                        "validation batch")
     parser.add_argument("--num-workers", type=int, default=8)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--disc-loss-mp-scale", type=float, default=1.0)
@@ -137,10 +146,16 @@ def get_parser():
     parser.add_argument("--valid-interval", type=int, default=1000)
     parser.add_argument("--save-every-n", type=int, default=4000)
     parser.add_argument("--keep-last-k", type=int, default=30)
-    parser.add_argument("--tensorboard", type=str2bool, default=False, help="not ported yet")
-    parser.add_argument("--inf-check", type=str2bool, default=False, help="not ported yet")
-    parser.add_argument("--print-diagnostics", type=str2bool, default=False, help="not ported yet")
-    parser.add_argument("--profile-dir", type=str, default=None, help="not ported yet")
+    parser.add_argument("--tensorboard", type=str2bool, default=True)
+    parser.add_argument("--inf-check", type=str2bool, default=False,
+                        help="On a D or G update clipped to zero, rank that side's parameters by "
+                        "gradient-norm share; on a non-finite loss, name the generator modules "
+                        "whose outputs went non-finite")
+    parser.add_argument("--print-diagnostics", type=str2bool, default=False,
+                        help="Collect the generator's activation, parameter and gradient tables "
+                        "and PReLU histograms through the G objective for 5 batches, print, exit")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler trace of batches 10-15 into this directory")
     parser.add_argument("--remat-rollout", type=str2bool, default=False,
                         help="Recompute each Euler step of the G step's rollout in backward")
     parser.add_argument("--freeze-modules", type=str, default=None,
@@ -160,7 +175,6 @@ def run(args) -> List[dict]:
     """Fine-tune; returns one record per batch: batch index, the training
     loader it drew from, side ("D" or "G"), loss, lr, clip_scale and the
     step's wall ms (to the loss's arrival on the host)."""
-    check_ported(args, _LATER)
     owns_group = not torch.distributed.is_initialized()
     device = start_run(args, "GAN fine-tuning")
     try:
@@ -170,15 +184,38 @@ def run(args) -> List[dict]:
             dist.destroy()
 
 
+def diagnose_gan_batch(diag: DiagnosticsCollector, generator, g_loss_fn, cond_fn, batch,
+                       draws, n_timesteps: int, gen: torch.Generator,
+                       scalars: Optional[tuple] = None) -> None:
+    """One --print-diagnostics batch of the fine-tuner: the generator's
+    module outputs in an eval-form rollout, its parameters, and in one
+    backward of the G objective through the train-form rollout (`draws`)
+    its parameter and module-output gradients (with `scalars`, the PReLU
+    outputs and gradients, one per Euler step's call)."""
+    with torch.no_grad(), diag.outputs(generator):
+        generator.infer(cond_fn(batch["audio"]), n_timesteps=n_timesteps, generator=gen)
+    named = list(generator.named_parameters())
+    diag.collect_params(named)
+    generator.zero_grad()
+    with diag.output_grads(generator, scalars):
+        g_loss_fn(batch, draws)[0].backward(inputs=[p for _, p in named])
+    diag.collect_params(((n, p.grad) for n, p in named), suffix=".param_grad")
+    generator.zero_grad()
+
+
 def _finetune(args, device: torch.device) -> List[dict]:
     exp_dir = Path(args.exp_dir)
     main = dist.is_main()
+    env_info = get_env_info(device)
+    logging.info(f"Environment: {env_info}")
     cfg = get_generator_config(args.model_name)
     cfg["branch_dropout"] = 0.0  # off in the GAN stage, as in the reference
     gan_cfg = get_gan_config(args.gan_name)
     # the rollout's conditioning: the log-mel, or for a token config the
     # tokenizer over the same frontend; the mel reconstruction loss keeps mels
     cond_fn = conditioning_frontend(cfg, args.tokenizer, args.model_name).to(device)
+    mel_fn = LogMelSpectrogram(sampling_rate=cfg.sampling_rate, n_fft=cfg.mel_n_fft,
+                               hop_length=cfg.mel_hop_length, n_mels=cfg.n_mels).to(device)
     generator = init_weights(build_generator(cfg), torch.Generator().manual_seed(args.seed))
     if args.generator_model_path:
         logging.info(f"Loading generator from {args.generator_model_path}")
@@ -204,7 +241,8 @@ def _finetune(args, device: torch.device) -> List[dict]:
         lr_d_fn=lambda b: eden2_lr(args.lr_d, b, args.lr_batches_d,
                                    warmup_batches=args.warmup_batches,
                                    warmup_start=args.warmup_start),
-        n_timesteps=args.n_timesteps, scales=scales, remat_rollout=args.remat_rollout)
+        n_timesteps=args.n_timesteps, scales=scales, remat_rollout=args.remat_rollout,
+        keep_grads=args.inf_check)
     logging.info(f"Parameters: generator {sum(p.numel() for p in generator.parameters())}, "
                  f"discriminators {sum(p.numel() for p in discriminators.parameters())}")
 
@@ -229,6 +267,8 @@ def _finetune(args, device: torch.device) -> List[dict]:
         del loaded
     dist.assert_replicas_equal([*generator.parameters(), *discriminators.parameters()])
     train_dls, valid_dls, dls_weights = build_loaders(args, cfg.sampling_rate, 16)
+    tb_writer = open_tensorboard(args)
+    test_batch = load_test_batch(args, cfg.sampling_rate, valid_dls) if tb_writer else None
 
     def save(filename, sampler_state=None, **extra):
         ckpt.save_checkpoint(
@@ -239,7 +279,7 @@ def _finetune(args, device: torch.device) -> List[dict]:
             optimizer_state={"g": optimizer_g.state_dict(), "d": optimizer_d.state_dict()},
             train_params={"batch_idx_train": batch_idx_train, "train_disc": train_disc,
                           "model_name": args.model_name, "n_timesteps": args.n_timesteps,
-                          **extra},
+                          "env_info": env_info, **extra},
             sampler_state=sampler_state)
 
     def save_bad_model(suffix):
@@ -259,82 +299,131 @@ def _finetune(args, device: torch.device) -> List[dict]:
                                       shard=shard)
 
     guard = NonfiniteLossGuard()
+    diag, diag_g_loss = None, None
+    if args.print_diagnostics:
+        diag = DiagnosticsCollector()
+        diag_g_loss = make_gan_loss_fns(generator, discriminators, cond_fn, mel_recon_fns,
+                                        args.n_timesteps, scales)[1]
+    profile = ProfileWindow(args.profile_dir, device)
+    gt_dumped = False  # the test samples' ground truth is written once a run
     history = []
-    for epoch in range(args.start_epoch, args.num_epochs + 1):
-        rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
-        resume_sampler = None
-        iters = [iter(dl) for dl in train_dls]
-        tot_g, tot_d = MetricsTracker(), MetricsTracker()
-        batch_idx = 0
-        while True:
-            dl_idx = rng_py.choices(range(len(iters)), weights=dls_weights, k=1)[0]
-            try:
-                batch = next(iters[dl_idx])
-            except StopIteration:
-                logging.info(f"Reach end of dataloader {dl_idx}")
-                break
-            batch_idx += 1
-            batch_idx_train += 1
-            start = time.perf_counter()
-            dev_batch = _to_device(batch, device)
-            # the draws from the count of batches before this one
-            gen = step_generator(args.seed + 1, batch_idx_train - 1, device)
-            side = "D" if train_disc else "G"
-            if train_disc:
-                metrics = d_step(dev_batch, draws(dev_batch["audio"], False, gen))
-                keys, lr = _D_METRICS, metrics["lr_d"]
-                if batch_idx_train >= args.gen_start_batch_idx:
-                    train_disc = False
-            else:
-                metrics = g_step(dev_batch, draws(dev_batch["audio"], True, gen))
-                keys, lr = _G_METRICS, metrics["lr_g"]
-                train_disc = True
-            values = torch.stack([metrics[k] for k in keys]).tolist()
-            loss_val, clip_val = values[0], float(metrics["clip_scale"])
-            history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "side": side,
-                            "loss": loss_val, "lr": lr, "clip_scale": clip_val,
-                            "ms": (time.perf_counter() - start) * 1e3})
-            n = batch["audio"].shape[0]
-            info = MetricsTracker()
-            info["samples"] = n
-            for k, v in zip(keys, values):
-                info[k] = v * n
-            if side == "D":
-                tot_d = tot_d + info
-            else:
-                tot_g = tot_g + info
-            guard.check(loss_val, clip_val, batch_idx_train, save_bad_model)
+    try:
+        for epoch in range(args.start_epoch, args.num_epochs + 1):
+            rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
+            resume_sampler = None
+            iters = [iter(dl) for dl in train_dls]
+            tot_g, tot_d = MetricsTracker(), MetricsTracker()
+            batch_idx = 0
+            while True:
+                dl_idx = rng_py.choices(range(len(iters)), weights=dls_weights, k=1)[0]
+                try:
+                    batch = next(iters[dl_idx])
+                except StopIteration:
+                    logging.info(f"Reach end of dataloader {dl_idx}")
+                    break
+                batch_idx += 1
+                batch_idx_train += 1
+                start = time.perf_counter()
+                profile.before(batch_idx_train)
+                dev_batch = _to_device(batch, device)
+                # the draws from the count of batches before this one
+                gen = step_generator(args.seed + 1, batch_idx_train - 1, device)
+                side = "D" if train_disc else "G"
+                if train_disc:
+                    metrics = d_step(dev_batch, draws(dev_batch["audio"], False, gen))
+                    keys, lr_key = _D_METRICS, "lr_d"
+                    if batch_idx_train >= args.gen_start_batch_idx:
+                        train_disc = False
+                else:
+                    metrics = g_step(dev_batch, draws(dev_batch["audio"], True, gen))
+                    keys, lr_key = _G_METRICS, "lr_g"
+                    train_disc = True
+                values = torch.stack([metrics[k] for k in keys]).tolist()
+                loss_val, clip_val, lr = values[0], float(metrics["clip_scale"]), metrics[lr_key]
+                history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "side": side,
+                                "loss": loss_val, "lr": lr, "clip_scale": clip_val,
+                                "ms": (time.perf_counter() - start) * 1e3})
+                n = batch["audio"].shape[0]
+                info = MetricsTracker()
+                info["samples"] = n
+                for k, v in zip(keys, values):
+                    info[k] = v * n
+                if side == "D":
+                    tot_d = tot_d + info
+                else:
+                    tot_g = tot_g + info
+                profile.after(batch_idx_train)
+                if clip_val == 0.0 and args.inf_check:
+                    # the step left its side's (global) gradients in .grad
+                    moved = discriminators if side == "D" else generator
+                    log_dominant_grads(moved.named_parameters(),
+                                       optimizer_d if side == "D" else optimizer_g, f"{side} ")
+                if diag is not None:
+                    last = batch_idx == DIAGNOSTIC_BATCHES
+                    scalars = ({}, {}) if last else None
+                    dgen = step_generator(args.seed + 1, batch_idx_train, device)
+                    diagnose_gan_batch(diag, generator, diag_g_loss, cond_fn, dev_batch,
+                                       draws(dev_batch["audio"], True, dgen), args.n_timesteps,
+                                       dgen, scalars)
+                    if last:
+                        print_diagnostics(diag, scalars)
+                        return history
 
-            if main and batch_idx_train % args.average_period == 0:
-                model_avg = ckpt.update_averaged_model(model_avg, generator.state_dict(),
-                                                       args.average_period, batch_idx_train)
-            if main and batch_idx_train % args.save_every_n == 0:
-                save(exp_dir / f"checkpoint-{batch_idx_train}.pt",
-                     sampler_state=ckpt.sampler_state_snapshot(epoch, train_dls, rng_py))
-                ckpt.remove_checkpoints(exp_dir, topk=args.keep_last_k)
-            if batch_idx_train % args.log_interval == 0:
-                logging.info(f"Epoch {epoch}, batch {batch_idx}, global {batch_idx_train}, "
-                             f"{side} loss {loss_val:.4f}, lr {lr:.2e}, clip {clip_val:.3f}; "
-                             f"G avg: {tot_g}; D avg: {tot_d}")
-            if args.valid_interval > 0 and batch_idx_train % args.valid_interval == 0 and valid_dls:
-                valid = MetricsTracker()
-                vgen = torch.Generator(device=device).manual_seed(args.seed + 1)
-                for dl in valid_dls:
-                    for vb in dl:
-                        vb = _to_device(vb, device)
-                        m = eval_step(vb, draws(vb["audio"], False, vgen))
-                        n = vb["audio"].shape[0]
-                        valid["samples"] += n
-                        for k in ("loss_g", "mel_recon_loss"):
-                            valid[k] += float(m[k]) * n
-                valid.reduce(device)
-                logging.info(f"Epoch {epoch}, validation: {valid}")
-                if device.type == "cuda":
-                    logging.info(f"Peak device memory "
-                                 f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+                def replay():
+                    # an eval-form rollout of the offending batch, every
+                    # generator output tapped
+                    rgen = step_generator(args.seed + 1, batch_idx_train - 1, device)
+                    return find_nonfinite_module_outputs(generator, lambda: generator.infer(
+                        cond_fn(dev_batch["audio"]), n_timesteps=args.n_timesteps, generator=rgen))
 
-        if main:
-            save(exp_dir / f"epoch-{epoch}.pt")
+                guard.check(loss_val, clip_val, batch_idx_train, save_bad_model,
+                            intermediates_fn=replay if args.inf_check else None)
+
+                if main and batch_idx_train % args.average_period == 0:
+                    model_avg = ckpt.update_averaged_model(model_avg, generator.state_dict(),
+                                                           args.average_period, batch_idx_train)
+                if main and batch_idx_train % args.save_every_n == 0:
+                    save(exp_dir / f"checkpoint-{batch_idx_train}.pt",
+                         sampler_state=ckpt.sampler_state_snapshot(epoch, train_dls, rng_py))
+                    ckpt.remove_checkpoints(exp_dir, topk=args.keep_last_k)
+                # the batch at the interval and the one after it, so both sides show
+                if batch_idx_train % args.log_interval in (0, 1):
+                    logging.info(f"Epoch {epoch}, batch {batch_idx}, global {batch_idx_train}, "
+                                 f"{side} loss {loss_val:.4f}, lr {lr:.2e}, clip {clip_val:.3f}; "
+                                 f"G avg: {tot_g}; D avg: {tot_d}")
+                    if tb_writer is not None:
+                        for k, v in [*zip(keys, values), (lr_key, lr), ("clip_scale", clip_val)]:
+                            tb_writer.add_scalar(f"train/{k}", v, batch_idx_train)
+                if args.valid_interval > 0 and batch_idx_train % args.valid_interval == 0 and valid_dls:
+                    valid = MetricsTracker()
+                    vgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+                    for dl in valid_dls:
+                        for vb in dl:
+                            vb = _to_device(vb, device)
+                            m = eval_step(vb, draws(vb["audio"], False, vgen))
+                            n = vb["audio"].shape[0]
+                            valid["samples"] += n
+                            for k in ("loss_g", "mel_recon_loss"):
+                                valid[k] += float(m[k]) * n
+                    valid.reduce(device)
+                    logging.info(f"Epoch {epoch}, validation: {valid}")
+                    if device.type == "cuda":
+                        logging.info(f"Peak device memory "
+                                     f"{torch.cuda.max_memory_allocated(device) / 1e9:.2f} GB")
+                    if tb_writer is not None:
+                        valid.write_summary(tb_writer, "train/valid_", batch_idx_train)
+                        if test_batch is not None:
+                            save_test_samples(tb_writer, generator, mel_fn, cond_fn, test_batch,
+                                              [args.n_timesteps], batch_idx_train,
+                                              cfg.sampling_rate, with_gt=not gt_dumped)
+                            gt_dumped = True
+
+            if main:
+                save(exp_dir / f"epoch-{epoch}.pt")
+    finally:
+        profile.close()
+        if tb_writer is not None:
+            tb_writer.close()
     logging.info("Done!")
     return history
 

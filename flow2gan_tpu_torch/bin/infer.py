@@ -7,7 +7,8 @@ reconstruction, or wav -> tokens -> wav for a token config with
         --recordings data/test.jsonl.gz --root-path data --output-dir out
 
 The weights (`resolve_params`) come from --checkpoint (the port's `.pt`, a
-trainer checkpoint, or a released checkpoint in the reference's naming), from
+trainer checkpoint, a released checkpoint in the reference's naming, or a
+`.ckpt` the JAX package wrote), from
 --epoch N (exp-dir/epoch-N.pt), or from --epoch N --avg K: the window
 (epoch-{N-K}, epoch-N] of the trainer's running averages, or with
 --use-averaged-model false the plain mean of epochs N-K+1..N. With
@@ -30,6 +31,7 @@ from typing import Dict, List
 import torch
 
 from flow2gan_tpu_torch.api import VocoderModel
+from flow2gan_tpu_torch.compat.from_jax import generator_params, jax_params_to_state_dict
 from flow2gan_tpu_torch.compat.from_reference import load_torch_file, to_port_state_dict
 from flow2gan_tpu_torch.data.audio_io import write_wav
 from flow2gan_tpu_torch.data.dataset import build_data_loader, read_recording_manifest
@@ -49,7 +51,8 @@ def get_parser():
     parser.add_argument("--model-name", type=str, default=None,
                         help="Config name (default: the released model's, else mel_24k_base)")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="The port's .pt, a trainer checkpoint or a reference-named .pt")
+                        help="The port's .pt, a trainer checkpoint, a reference-named .pt or a "
+                        "JAX package .ckpt")
     parser.add_argument("--hf-model-name", type=str, default=None,
                         help="A released model's name; needs its file as --checkpoint")
     parser.add_argument("--epoch", type=int, default=None, help="Use exp-dir/epoch-N.pt")
@@ -78,6 +81,9 @@ def get_parser():
 
 def resolve_params(args, model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """The state dict the flags name, in the port's naming."""
+    if args.checkpoint and ckpt.is_jax_checkpoint(args.checkpoint):
+        return jax_params_to_state_dict(
+            generator_params(ckpt.load_jax_checkpoint(args.checkpoint), args.load_gan))
     if args.checkpoint:
         return to_port_state_dict(load_torch_file(args.checkpoint, args.load_gan), model)
     if args.hf_model_name:

@@ -22,16 +22,26 @@ and re-lays the kernels:
 `discriminator_0` / `discriminator_1` are module names, not list entries, on
 both sides. `load_gan_params` fills a generator and a `Discriminators` from
 a `{"generator": ..., "discriminator": ...}` tree.
+
+A `.ckpt` file the JAX package wrote (`load_jax_checkpoint`, which
+`training/checkpoint.py` offers too) holds the params under "model", a GAN trainer's as
+`{"generator": ..., "discriminator": ...}` there; `generator_params` picks
+the generator's tree out of either. Only weights cross: the optimizer
+states are laid out otherwise (JAX keeps one per leaf, the port one per
+shape group).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from pathlib import Path
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from flow2gan_tpu_torch.compat import flax_msgpack
 
 _LIST_ENTRY = re.compile(r"^(blocks|estimators|discriminators|convs|band_convs)_(\d+(?:_\d+)?)$")
 
@@ -100,10 +110,35 @@ def load_jax_params(model: nn.Module, params: Mapping) -> nn.Module:
     return model
 
 
+def is_jax_checkpoint(path: Union[str, Path]) -> bool:
+    """A `.ckpt` file is the JAX package's (flax msgpack), as that package
+    tells its files from `.pt` ones."""
+    return str(path).endswith(".ckpt")
+
+
+def load_jax_checkpoint(path: Union[str, Path]) -> Dict[str, Any]:
+    """A checkpoint the JAX package wrote, as nested dicts with numpy
+    leaves (`compat/flax_msgpack.py`)."""
+    return flax_msgpack.loads(Path(path).read_bytes())
+
+
+def generator_params(tree: Mapping, load_gan: bool = True) -> Mapping:
+    """The generator's flax params in what a `.ckpt` holds: a params tree,
+    a checkpoint (its "model"), or a GAN checkpoint, whose "generator" is
+    taken where `load_gan` is true and raises otherwise."""
+    tree = tree["model"] if "model" in tree else tree
+    if "generator" in tree:
+        if not load_gan:
+            raise ValueError("this is a GAN checkpoint: pass --load-gan to take its generator")
+        tree = tree["generator"]
+    return tree
+
+
 def load_gan_params(generator: nn.Module, discriminators: nn.Module, params: Mapping):
     """Fill a generator and a `Discriminators` from the GAN stage's tree
-    `{"generator": ..., "discriminator": ...}`, each strictly; another
-    top-level key raises."""
+    `{"generator": ..., "discriminator": ...}`, or a GAN checkpoint holding
+    it as "model", each strictly; another top-level key raises."""
+    params = params["model"] if "model" in params else params
     if set(params) != {"generator", "discriminator"}:
         raise KeyError(f"a GAN tree holds 'generator' and 'discriminator', not {sorted(params)}")
     load_jax_params(generator, params["generator"])

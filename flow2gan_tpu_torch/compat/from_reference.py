@@ -28,6 +28,13 @@ from typing import Dict, Mapping, Union
 import torch
 from torch import nn
 
+from flow2gan_tpu_torch.compat.from_jax import (
+    generator_params,
+    is_jax_checkpoint,
+    load_jax_checkpoint,
+    load_jax_params,
+)
+
 StateDict = Dict[str, torch.Tensor]
 
 # reference state-dict entries with no parameter counterpart in the port
@@ -130,6 +137,10 @@ def to_port_state_dict(state_dict: Mapping[str, torch.Tensor], model: nn.Module)
 
 def load_weights(model: nn.Module, path: Union[str, Path]) -> nn.Module:
     """Fill `model` from a `.pt` file: the port's `state_dict`, a trainer
-    checkpoint (its "model" entry) or a reference-named checkpoint."""
+    checkpoint (its "model" entry) or a reference-named checkpoint; or from
+    a JAX package `.ckpt` (its params, a trainer checkpoint's "model", or a
+    GAN checkpoint's generator), as strictly."""
+    if is_jax_checkpoint(path):
+        return load_jax_params(model, generator_params(load_jax_checkpoint(path)))
     model.load_state_dict(to_port_state_dict(load_torch_file(path), model), strict=True)
     return model

@@ -79,6 +79,21 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype: Optional[torch.dtype]) -> t
     return F.linear(x, weight) + bias
 
 
+class SameConv1d(nn.Conv1d):
+    """A stride-1 SAME-padded `Conv1d` on channels-last (B, T, C_in) ->
+    (B, T, C_out), in the compute dtype `compute_dtype` (`_conv_same`); a
+    module of its own, so that hooks see its output, as flax's `Conv` is a
+    module."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__(in_channels, out_channels, kernel_size)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _conv_same(x, self.weight, self.bias, dtype=self.compute_dtype)
+
+
 class DepthwiseConv1d(nn.Module):
     """Depthwise k-tap conv with SAME zero padding on (B, T, C)."""
 
@@ -168,7 +183,7 @@ class CondEncoder(nn.Module):
     ):
         super().__init__()
         self.dtype = dtype
-        self.in_proj = nn.Conv1d(cond_dim, channels, 3)
+        self.in_proj = SameConv1d(cond_dim, channels, 3, dtype)
         self.in_norm = BiasNorm(channels)
         self.blocks = nn.ModuleList(
             ConvNeXtBlock(
@@ -183,8 +198,7 @@ class CondEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = _conv_same(x, self.in_proj.weight, self.in_proj.bias, dtype=self.dtype)
-        x = self.in_norm(x, gates)
+        x = self.in_norm(self.in_proj(x), gates)
         for block in self.blocks:
             x = block(x, mask=mask, gates=gates)
         return x

@@ -14,14 +14,21 @@ GAN stage, counterpart of `flow2gan_tpu/models/discriminators.py`, in NCHW.
 
 Module names follow the flax tree (`discriminator_0.discriminators.<i>.convs.<j>`,
 `discriminator_1.discriminators.<i>.band_convs.<b>.<j>`), so
-`compat/from_jax.py` carries a JAX tree by renaming. The reference's
-per-speaker `num_embeddings` term is never built by `Discriminators` and is
-not ported. `init_discriminators` draws flax's default init.
+`compat/from_jax.py` carries a JAX tree by renaming. `init_discriminators`
+draws flax's default init.
+
+`num_embeddings` gives a sub-discriminator (and the MPD and MRD bundles,
+each of theirs) the reference's conditional term: a zero-initialised `emb`
+table of the last conv's width, and with a `cond_embedding_id` (B,) the
+score gains h = sum over channels of emb[id] * x, x the input of
+`conv_post`, added after `conv_post` (whose feature map stays without it),
+where the JAX package adds it. `Discriminators` builds none, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,10 +43,30 @@ def _leaky(x: torch.Tensor) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+def _embedding(num_embeddings: Optional[int], dim: int) -> Optional[nn.Embedding]:
+    if num_embeddings is None:
+        return None
+    emb = nn.Embedding(num_embeddings, dim)
+    nn.init.zeros_(emb.weight)
+    return emb
+
+
+def _post(conv_post: nn.Conv2d, emb: Optional[nn.Embedding], x: torch.Tensor,
+          cond_embedding_id: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """conv_post(x), and that plus the embedding term where there is one:
+    (feature map, score)."""
+    out = conv_post(x)
+    if emb is None or cond_embedding_id is None:
+        return out, out
+    h = (emb(cond_embedding_id)[:, :, None, None] * x).sum(dim=1, keepdim=True)
+    return out, out + h
+
+
 class DiscriminatorP(nn.Module):
     CHANNELS = (32, 128, 512, 1024, 1024)  # the five convs' outputs
 
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3, *,
+                 num_embeddings: Optional[int] = None):
         super().__init__()
         self.period = period
         channels = (1, *self.CHANNELS)
@@ -50,8 +77,10 @@ class DiscriminatorP(nn.Module):
             for i in range(5)
         )
         self.conv_post = nn.Conv2d(channels[-1], 1, (3, 1), padding=(1, 0))
+        self.emb = _embedding(num_embeddings, channels[-1])
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, cond_embedding_id: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(B, T) -> score (B, N) and the five feature maps."""
         b, t = x.shape
         p = self.period
@@ -64,15 +93,16 @@ class DiscriminatorP(nn.Module):
             x = _leaky(conv(x))
             if i > 0:
                 fmap.append(x)
-        x = self.conv_post(x)
-        fmap.append(x)
+        out, x = _post(self.conv_post, self.emb, x, cond_embedding_id)
+        fmap.append(out)
         return x.flatten(1), fmap
 
 
 class DiscriminatorR(nn.Module):
     BANDS = ((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75), (0.75, 1.0))
 
-    def __init__(self, window_length: int, channels: int = 32, hop_factor: float = 0.25):
+    def __init__(self, window_length: int, channels: int = 32, hop_factor: float = 0.25, *,
+                 num_embeddings: Optional[int] = None):
         super().__init__()
         self.window_length = window_length
         self.hop_length = int(window_length * hop_factor)
@@ -88,6 +118,7 @@ class DiscriminatorR(nn.Module):
 
         self.band_convs = nn.ModuleList(stack() for _ in self.bands)
         self.conv_post = nn.Conv2d(channels, 1, (3, 3), padding=(1, 1))
+        self.emb = _embedding(num_embeddings, channels)
 
     def spectrogram(self, x: torch.Tensor) -> torch.Tensor:
         """(B, T) -> (B, 2, frames, n_bins): the DC-free, peak-normalised
@@ -97,7 +128,8 @@ class DiscriminatorR(nn.Module):
         spec = stft(x, self.window_length, self.hop_length)
         return torch.stack([spec.real, spec.imag], dim=1)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def forward(self, x: torch.Tensor, cond_embedding_id: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(B, T) -> score (B, 1, frames, F') and the 21 feature maps."""
         z = self.spectrogram(x)
         fmap, outs = [], []
@@ -108,40 +140,46 @@ class DiscriminatorR(nn.Module):
                 if i > 0:
                     fmap.append(band)
             outs.append(band)
-        x = self.conv_post(torch.cat(outs, dim=3))
-        fmap.append(x)
+        out, x = _post(self.conv_post, self.emb, torch.cat(outs, dim=3), cond_embedding_id)
+        fmap.append(out)
         return x, fmap
 
 
 class _MultiDiscriminator(nn.Module):
     """A list of sub-discriminators, each judging a signal on its own."""
 
-    def judge(self, x: torch.Tensor) -> Judgement:
-        """Every sub-discriminator's score and feature maps for (B, T) x."""
+    def judge(self, x: torch.Tensor, bandwidth_id: Optional[torch.Tensor] = None) -> Judgement:
+        """Every sub-discriminator's score and feature maps for (B, T) x,
+        conditioned on `bandwidth_id` where they have embeddings."""
         scores, fmaps = [], []
         for d in self.discriminators:
-            score, fmap = d(x)
+            score, fmap = d(x, bandwidth_id)
             scores.append(score)
             fmaps.append(fmap)
         return scores, fmaps
 
-    def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
+    def forward(self, y: torch.Tensor, y_hat: torch.Tensor,
+                bandwidth_id: Optional[torch.Tensor] = None):
         """(scores real, scores fake, fmaps real, fmaps fake), as the JAX
         module returns them."""
-        real, fake = self.judge(y), self.judge(y_hat)
+        real, fake = self.judge(y, bandwidth_id), self.judge(y_hat, bandwidth_id)
         return real[0], fake[0], real[1], fake[1]
 
 
 class MultiPeriodDiscriminator(_MultiDiscriminator):
-    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11)):
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11), *,
+                 num_embeddings: Optional[int] = None):
         super().__init__()
-        self.discriminators = nn.ModuleList(DiscriminatorP(p) for p in periods)
+        self.discriminators = nn.ModuleList(DiscriminatorP(p, num_embeddings=num_embeddings)
+                                            for p in periods)
 
 
 class MultiResolutionDiscriminator(_MultiDiscriminator):
-    def __init__(self, fft_sizes: Sequence[int] = (2048, 1024, 512)):
+    def __init__(self, fft_sizes: Sequence[int] = (2048, 1024, 512), *,
+                 num_embeddings: Optional[int] = None):
         super().__init__()
-        self.discriminators = nn.ModuleList(DiscriminatorR(w) for w in fft_sizes)
+        self.discriminators = nn.ModuleList(DiscriminatorR(w, num_embeddings=num_embeddings)
+                                            for w in fft_sizes)
 
 
 class Discriminators(nn.Module):

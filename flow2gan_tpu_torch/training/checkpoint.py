@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from flow2gan_tpu_torch.compat.from_jax import is_jax_checkpoint, load_jax_checkpoint  # noqa: F401
 from flow2gan_tpu_torch.compat.from_reference import load_torch_file
 
 Pathlike = Union[str, Path]
@@ -74,6 +75,13 @@ def save_checkpoint(
 
 
 def load_checkpoint(filename: Pathlike) -> Dict[str, Any]:
+    """A checkpoint the port wrote. A JAX `.ckpt` raises: its optimizer
+    state does not carry over (`compat/from_jax.py`), so training cannot
+    resume from one."""
+    if is_jax_checkpoint(filename):
+        raise ValueError(f"{filename} is a JAX checkpoint: its weights load into the port "
+                         "(get_model, bin/infer --checkpoint, --generator-model-path), but its "
+                         "optimizer state is laid out otherwise, so training cannot resume from it")
     return torch.load(str(filename), map_location="cpu", weights_only=True)
 
 

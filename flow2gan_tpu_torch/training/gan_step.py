@@ -146,11 +146,14 @@ def make_gan_steps(
     n_timesteps: int = 1,
     scales: GANLossScales = GANLossScales(),
     remat_rollout: bool = False,
+    keep_grads: bool = False,
 ):
     """(d_step, g_step, eval_step), each (batch, draws) -> metrics; the two
-    training steps update their side in place and free its gradients. The
-    D/G alternation is the caller's loop. The metrics are the global
-    batch's on every rank."""
+    training steps update their side in place and free its gradients, or
+    with `keep_grads` leave them in `.grad` until that side's next step
+    (`--inf-check` ranks them when the step was clipped to zero). The D/G
+    alternation is the caller's loop. The metrics are the global batch's on
+    every rank."""
     world = dist.world_size()
     d_loss_fn, g_loss_fn = (_share(fn, world) for fn in make_gan_loss_fns(
         generator, discriminators, cond_fn, mel_recon_fns, n_timesteps, scales, remat_rollout))
@@ -159,21 +162,25 @@ def make_gan_steps(
 
     def d_step(batch: Batch, draws: RolloutDraws) -> Metrics:
         loss, metrics = d_loss_fn(batch, draws)
+        optimizer_d.zero_grad()
         loss.backward(inputs=params_d)
         metrics = _global(metrics, params_d)
         lr = lr_d_fn(optimizer_d.step_count)
         optimizer_d.step(lr)
-        optimizer_d.zero_grad()
+        if not keep_grads:
+            optimizer_d.zero_grad()
         return {**metrics, "lr_d": lr, "clip_scale": optimizer_d.clip_scale,
                 "samples": batch["audio"].shape[0]}
 
     def g_step(batch: Batch, draws: RolloutDraws) -> Metrics:
         loss, metrics = g_loss_fn(batch, draws)
+        optimizer_g.zero_grad()
         loss.backward(inputs=params_g)
         metrics = _global(metrics, params_g)
         lr = lr_g_fn(optimizer_g.step_count)
         optimizer_g.step(lr)
-        optimizer_g.zero_grad()
+        if not keep_grads:
+            optimizer_g.zero_grad()
         return {**metrics, "lr_g": lr, "clip_scale": optimizer_g.clip_scale,
                 "samples": batch["audio"].shape[0]}
 

@@ -28,6 +28,7 @@ schedule branches on the host and `step` never waits for the device.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
@@ -243,6 +244,11 @@ class ScaledAdam:
                        for g in self.groups],
         }
 
+    def named_param_rms(self) -> Dict[str, torch.Tensor]:
+        """Each parameter's RMS as the clipping norm weights it (0 for
+        scalars): its row of its shape group's `param_rms`, on the device."""
+        return {n: g.param_rms[i] for g in self.groups for i, n in enumerate(g.names)}
+
     def load_state_dict(self, state: dict) -> None:
         """Restore a copy of `state_dict()` onto the same parameters (by
         name)."""
@@ -263,15 +269,15 @@ class ScaledAdam:
 # -------------------------------------------------- per-parameter lr scaling
 
 _LIST_NAMES = ("blocks", "estimators", "discriminators", "convs", "band_convs")
+_EMBEDDINGS = ("token_embed", "emb")  # flax `Embed`s: their `weight` is `embedding`
 
 
-def jax_path(name: str) -> Tuple[str, ...]:
-    """The JAX package's parameter path of a port parameter name, the
-    inverse of `compat/from_jax.py`'s renaming: `estimators.0.blocks.3.
-    dwconv.weight` -> (`estimators_0`, `blocks_3`, `dwconv`, `kernel`);
-    `band_convs.<b>.<i>` -> `band_convs_<b>_<i>`; a Linear or Conv `weight`
-    is flax's `kernel`."""
-    parts = name.split(".")
+def jax_scope(name: str) -> Tuple[str, ...]:
+    """The JAX package's scope path of a port module name, the inverse of
+    `compat/from_jax.py`'s renaming: `estimators.0.blocks.3.dwconv` ->
+    (`estimators_0`, `blocks_3`, `dwconv`); `band_convs.<b>.<i>` ->
+    `band_convs_<b>_<i>`."""
+    parts = name.split(".") if name else []
     out: List[str] = []
     i = 0
     while i < len(parts):
@@ -283,9 +289,17 @@ def jax_path(name: str) -> Tuple[str, ...]:
         else:
             out.append(part)
             i += 1
-    if out[-1] == "weight":
-        out[-1] = "kernel"
     return tuple(out)
+
+
+def jax_path(name: str) -> Tuple[str, ...]:
+    """The JAX package's parameter path of a port parameter name
+    (`jax_scope`, and a Linear or Conv `weight` is flax's `kernel`, an
+    Embedding's its `embedding`)."""
+    out = jax_scope(name)
+    if out[-1] == "weight":
+        out = (*out[:-1], "embedding" if len(out) > 1 and out[-2] in _EMBEDDINGS else "kernel")
+    return out
 
 
 def make_lr_scales(named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -391,3 +405,86 @@ def make_eden(base_lr: float, lr_batches: float, lr_epochs: float,
         lr_fn=lambda batch, epoch: eden_lr(base_lr, batch, epoch, lr_batches, lr_epochs,
                                            warmup_batches, warmup_start)
     )
+
+
+# ------------------------------------------------------------- Eve (baseline)
+
+
+class Eve(torch.optim.Optimizer):
+    """AdamW with target-rms-conditional weight decay, the reference's
+    baseline optimizer, counterpart of the JAX package's `Eve`: the decay
+    (not scaled by the lr) applies only while a non-scalar parameter's norm
+    exceeds `target_rms * sqrt(numel)`. The moments are float32; the
+    parameter moves by the float32 difference of its old and new values.
+    Neither trainer uses it."""
+
+    def __init__(self, params, lr: float = 1e-3, betas: Tuple[float, float] = (0.9, 0.98),
+                 eps: float = 1e-8, weight_decay: float = 1e-3, target_rms: float = 0.1):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                      target_rms=target_rms))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            beta1, beta2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.float32)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                state["step"] += 1
+                step = state["step"]
+                g = p.grad.float()
+                p32 = p.float()
+                m, v = state["exp_avg"], state["exp_avg_sq"]
+                m.mul_(beta1).add_(g, alpha=1.0 - beta1)
+                v.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
+                denom = v.sqrt() * (1.0 - beta2 ** step) ** -0.5 + group["eps"]
+                new_p = p32
+                if p.numel() > 1:
+                    above = p32.norm() > group["target_rms"] * p.numel() ** 0.5
+                    new_p = new_p * (1.0 - group["weight_decay"] * above.float())
+                new_p = new_p - group["lr"] / (1.0 - beta1 ** step) * m / denom
+                p.add_((new_p - p32).to(p.dtype))
+        return loss
+
+
+def dominant_parameters(named_grads: Iterable[Tuple[str, torch.Tensor]],
+                        param_rms: Optional[Mapping[str, torch.Tensor]] = None,
+                        top_n: int = 5) -> List[Tuple[str, float, float]]:
+    """Rank parameters by their share of the RMS-weighted squared gradient
+    norm, the reference's `show_dominant_parameters` and the JAX package's
+    `dominant_parameters`: (name, share, grad rms), largest share first.
+
+    `param_rms` (`ScaledAdam.named_param_rms`) weights each gradient as the
+    clipping norm does; without it the raw gradients are ranked. A gradient
+    holding non-finite values sorts first, by their count, with its share
+    taken over its finite part and its rms reported as inf. The statistics
+    are float64 on the gradients' device, fetched once."""
+    names, rows = [], []
+    for name, g in named_grads:
+        g = g.float()
+        w = g if param_rms is None else g * param_rms[name].float()
+        w64 = w.double()
+        finite = torch.isfinite(w64)
+        g64 = g.double()
+        names.append(name)
+        rows.append(torch.stack([
+            torch.where(finite, w64, torch.zeros_like(w64)).square().sum(),
+            g64.square().mean() if g.numel() else g64.new_zeros(()),
+            (~torch.isfinite(g)).sum().double()]))
+    if not rows:
+        return []
+    stats = torch.stack(rows).tolist()
+    tot = sum(s[0] for s in stats) or 1.0
+    entries = [(n, sumsq, math.inf if n_bad else mean_sq ** 0.5, n_bad)
+               for n, (sumsq, mean_sq, n_bad) in zip(names, stats)]
+    entries.sort(key=lambda e: (-e[3], -e[1]))
+    return [(n, s / tot, r) for n, s, r, _ in entries[:top_n]]

@@ -12,6 +12,7 @@ import os
 import pathlib
 from datetime import datetime
 
+import numpy as np
 import torch
 import torch.distributed
 
@@ -139,3 +140,26 @@ class MetricsTracker(collections.defaultdict):
     def __str__(self) -> str:
         ans = "".join(f"{k}={v:.4g}, " for k, v in self.norm_items())
         return ans + f"over {self['samples']:.2f} samples."
+
+    def write_summary(self, tb_writer, prefix: str, batch_idx: int) -> None:
+        """Each metric per sample as a TensorBoard scalar `{prefix}{name}`."""
+        for k, v in self.norm_items():
+            tb_writer.add_scalar(prefix + k, v, batch_idx)
+
+
+# viridis at nine evenly spaced points, interpolated to 256 colours
+_COLOURS = np.array([(68, 1, 84), (71, 44, 122), (59, 81, 139), (44, 113, 142), (33, 144, 141),
+                     (39, 173, 129), (92, 200, 99), (170, 220, 50), (253, 231, 37)], np.float64)
+_COLOUR_TABLE = np.stack([np.interp(np.linspace(0.0, 1.0, 256), np.linspace(0.0, 1.0, 9), c)
+                          for c in _COLOURS.T], axis=-1).round().astype(np.uint8)
+
+
+def plot_feature(spectrogram: np.ndarray) -> np.ndarray:
+    """A (channels, frames) feature as an (channels, frames, 3) uint8 image
+    for TensorBoard: min-max scaled through a viridis colour table, the
+    lowest channel at the bottom. One pixel per value, with no axes or
+    colour bar (the JAX package draws a matplotlib figure)."""
+    x = np.asarray(spectrogram, np.float64)
+    lo, hi = np.nanmin(x), np.nanmax(x)
+    scaled = np.nan_to_num((x - lo) / (hi - lo) if hi > lo else np.zeros_like(x))
+    return _COLOUR_TABLE[np.round(scaled * 255).astype(np.int64)][::-1].copy()

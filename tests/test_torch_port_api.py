@@ -21,7 +21,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, load without jax, flax
-    or the JAX package."""
+    or the JAX package, and without the packages the card's machine lacks
+    (tensorboardX, tensorboard, matplotlib, msgpack)."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "flow2gan_tpu_torch").rglob("*.py")
@@ -29,7 +30,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {modules + ['chip_smoke']!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'flow2gan_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'flow2gan_tpu',"
+        " 'tensorboardX', 'tensorboard', 'matplotlib', 'msgpack')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -48,8 +50,10 @@ def test_port_imports_no_jax():
         "flow2gan_tpu_torch.models.gan", "flow2gan_tpu_torch.training.gan_step",
         "flow2gan_tpu_torch.bin.finetune", "flow2gan_tpu_torch.parallel",
         "flow2gan_tpu_torch.parallel.dist", "flow2gan_tpu_torch.ops.tokenizer",
-        "flow2gan_tpu_torch.bin.train_tokenizer",
-    } <= set(modules) and len(modules) >= 37
+        "flow2gan_tpu_torch.bin.train_tokenizer", "flow2gan_tpu_torch.training.env",
+        "flow2gan_tpu_torch.training.diagnostics", "flow2gan_tpu_torch.utils_tb",
+        "flow2gan_tpu_torch.compat.flax_msgpack",
+    } <= set(modules) and len(modules) >= 41
 
 
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):

@@ -3,8 +3,7 @@ the non-log mel frontend at every scale of the multi-scale loss, each
 discriminator and the bundle (scores and every feature map), the four
 losses, the discriminator tree through `compat/from_jax.py`, the
 discriminators' init; and `bin/finetune.py` end to end on mel_24k_tiny with
-its checkpoints, resume, the `--load-gan` CLIs and the flags that are not
-ported yet.
+its checkpoints, resume, the `--load-gan` CLIs and its flags being taken.
 
 Tolerances, relative to the reference's max |.|: 1e-5 for the mels and the
 losses, 1e-4 for discriminator scores and feature maps (float32 through up to
@@ -36,7 +35,7 @@ from flow2gan_tpu_torch.models import gan as pgan
 from flow2gan_tpu_torch.ops import mel as pmel
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 
-from .test_torch_port_trainer import _corpus
+from .test_torch_port_trainer import _corpus, reaches_the_data
 
 SCALES = list(zip(get_gan_config("gan_multi_scale_mel_recon").mel_recon_n_ffts,
                   get_gan_config("gan_multi_scale_mel_recon").mel_recon_n_mels))
@@ -380,18 +379,20 @@ def test_load_gan_clis_export_and_serve_the_generator(finetuned, tmp_path):
         assert sr == 24000 and wav.shape == src.shape and np.isfinite(wav).all()
 
 
-@pytest.mark.parametrize("flag,value,item", [
-    ("--test-recordings", "test.jsonl", "'Observability'"),
-    ("--print-diagnostics", "true", "'Observability'"),
-    ("--inf-check", "true", "'Observability'"),
-    ("--tensorboard", "true", "'Observability'"),
-    ("--profile-dir", "prof", "'Observability'"),
+@pytest.mark.parametrize("flag,value", [
+    ("--test-recordings", "test.jsonl"), ("--print-diagnostics", "true"),
+    ("--inf-check", "true"), ("--tensorboard", "true"), ("--profile-dir", "prof"),
 ])
-def test_finetune_flags_not_ported_raise_and_name_their_item(flag, value, item, tmp_path):
-    args = finetune.get_parser().parse_args([flag, value, "--device", "cpu",
-                                             "--exp-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md, {item}"):
-        finetune.run(args)
+def test_finetune_observability_flags_are_ported(flag, value, tmp_path, monkeypatch):
+    """Each is taken (tests/test_torch_port_observability.py runs them), and
+    its help names no later slice. Narrow discriminators: the run stops at
+    its data."""
+    monkeypatch.setattr(pd.DiscriminatorP, "CHANNELS", (8, 16, 16, 32, 32))
+    monkeypatch.setattr(finetune, "Discriminators", lambda: pd.Discriminators((2,), (128,)))
+    parser = finetune.get_parser()
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert "not ported" not in (action.help or "")
+    reaches_the_data(finetune, [flag, value], tmp_path)
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -399,9 +400,10 @@ def test_finetune_flags_not_ported_raise_and_name_their_item(flag, value, item, 
     ("--lr-scale-rules", "cond_encoder=0.5"), ("--resume-from", "checkpoint-4.pt"),
 ])
 def test_finetune_shared_options_are_ported(flag, value):
-    """The fine-tuner's shared options pass the check
+    """The fine-tuner's shared options are taken
     (tests/test_torch_port_resume.py runs them)."""
-    finetune.check_ported(finetune.get_parser().parse_args([flag, value]), finetune._LATER)
+    args = finetune.get_parser().parse_args([flag, value])
+    assert getattr(args, flag[2:].replace("-", "_")) == value
 
 
 def test_finetune_multi_process_raises_and_needs_the_card(monkeypatch, tmp_path):
@@ -419,11 +421,11 @@ def test_finetune_multi_process_raises_and_needs_the_card(monkeypatch, tmp_path)
 
 
 def test_finetune_parser_keeps_the_jax_flags_and_defaults():
-    """Every flag of the JAX fine-tuner, with its default, but --tensorboard
-    (off: not ported) and --device (the port's own)."""
+    """Every flag of the JAX fine-tuner, with its default (--tensorboard
+    on), and --device (the port's own)."""
     ours = vars(finetune.get_parser().parse_args([]))
     theirs = vars(j_get_parser().parse_args([]))
     assert set(ours) - set(theirs) == {"device"} and set(theirs) <= set(ours)
     differ = {k for k in theirs if ours[k] != theirs[k] and k != "exp_dir"}
-    assert differ == {"tensorboard"}
+    assert differ == set() and ours["tensorboard"] is True
     assert str(ours["exp_dir"]) == str(theirs["exp_dir"])

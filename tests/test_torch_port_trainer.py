@@ -1,7 +1,7 @@
 """The port's trainer CLI and its data pipeline on the CPU: a few steps of
 mel_24k_tiny on a synthetic corpus, the averaged export served by
-`get_model`, the flags that are not ported yet, and the WAV, manifest and
-batch readers against the JAX package's."""
+`get_model`, the observability and shared flags being taken, and the WAV,
+manifest and batch readers against the JAX package's."""
 
 import os
 from pathlib import Path
@@ -85,19 +85,27 @@ def test_pretrain_trains_tiny_on_cpu_and_its_average_serves(tmp_path):
         torch.testing.assert_close(v, avg[k], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag,value,slice_", [
-    ("--test-recordings", "test.jsonl", "'Observability'"),
-    ("--save-infer-steps", "1", "'Observability'"),
-    ("--print-diagnostics", "true", "'Observability'"),
-    ("--inf-check", "true", "'Observability'"),
-    ("--tensorboard", "true", "'Observability'"),
-    ("--profile-dir", "prof", "'Observability'"),
+def reaches_the_data(module, argv, tmp_path) -> None:
+    """`module.run(argv)` on mel_24k_tiny gets as far as its data: it stops
+    at the missing --train-recordings, having taken every flag before."""
+    args = module.get_parser().parse_args([*argv, "--model-name", "mel_24k_tiny", "--device",
+                                           "cpu", "--exp-dir", str(tmp_path / "exp")])
+    with pytest.raises(SystemExit, match="--train-recordings is required"):
+        module.run(args)
+
+
+@pytest.mark.parametrize("flag,value", [
+    ("--test-recordings", "test.jsonl"), ("--save-infer-steps", "1"),
+    ("--print-diagnostics", "true"), ("--inf-check", "true"), ("--tensorboard", "true"),
+    ("--profile-dir", "prof"),
 ])
-def test_flags_not_ported_raise_and_name_their_slice(flag, value, slice_):
-    """Each names its ROADMAP.md item by title."""
-    args = pretrain.get_parser().parse_args([flag, value])
-    with pytest.raises(NotImplementedError, match=f"{flag}.*ROADMAP.md, {slice_}"):
-        pretrain.check_ported(args)
+def test_observability_flags_are_ported(flag, value, tmp_path):
+    """Each is taken (tests/test_torch_port_observability.py runs them), and
+    its help names no later slice."""
+    parser = pretrain.get_parser()
+    action = next(a for a in parser._actions if flag in a.option_strings)
+    assert "not ported" not in (action.help or "")
+    reaches_the_data(pretrain, [flag, value], tmp_path)
 
 
 @pytest.mark.parametrize("flag,value", [
@@ -105,9 +113,10 @@ def test_flags_not_ported_raise_and_name_their_slice(flag, value, slice_):
     ("--lr-scale-rules", "cond_encoder=0.5"), ("--resume-from", "checkpoint-4.pt"),
 ])
 def test_shared_options_are_ported(flag, value):
-    """The trainers' shared options pass the check (tests/test_torch_port_resume.py
+    """The trainers' shared options are taken (tests/test_torch_port_resume.py
     runs them)."""
-    pretrain.check_ported(pretrain.get_parser().parse_args([flag, value]))
+    args = pretrain.get_parser().parse_args([flag, value])
+    assert getattr(args, flag[2:].replace("-", "_")) == value
 
 
 def test_multi_process_runs_raise(monkeypatch):
@@ -128,13 +137,13 @@ def test_no_cpu_fallback_on_the_card(monkeypatch, tmp_path):
 
 
 def test_parser_keeps_the_jax_flags_and_defaults():
-    """Every flag of the JAX trainer, with its default, but --tensorboard
-    (off: not ported) and --device (the port's own)."""
+    """Every flag of the JAX trainer, with its default (--tensorboard on),
+    and --device (the port's own)."""
     ours = vars(pretrain.get_parser().parse_args([]))
     theirs = vars(j_get_parser().parse_args([]))
     assert set(ours) - set(theirs) == {"device"} and set(theirs) <= set(ours)
     differ = {k for k in theirs if ours[k] != theirs[k] and k != "exp_dir"}
-    assert differ == {"tensorboard"}
+    assert differ == set() and ours["tensorboard"] is True
     assert str(ours["exp_dir"]) == str(theirs["exp_dir"])
 
 
