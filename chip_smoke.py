@@ -154,7 +154,21 @@ prints no result line):
       batches with `--tensorboard`, `--test-recordings`, `--profile-dir`
       and `--inf-check` (every step's launches, the event file, the trace
       against the counted launches), then `--print-diagnostics` at batch 4;
-20. the `kernels` JSON line (each kernel's launches on every path, the
+20. the recipe, as a user runs it, at mel_24k_base on the card:
+   `bin/make_synthetic_corpus` (16 train utterances x 2 s, 2 test, 1 dev),
+   then `bash flow2gan_tpu_torch/recipes/run_libritts.sh` stages 1-6: the
+   manifests, FM pretraining for one epoch at batch 8, the average,
+   `--n-timesteps-list 1` GAN fine-tuning for one epoch at batch 4 after a
+   2-batch D warm-up and its export, inference on the test split and both
+   metric CLIs; every stage's exit code and artifacts (manifests,
+   `epoch-*.pt`, `averaged.pt`, `generator.pt`, the WAVs, metric JSONs with
+   n_files > 0 and finite values), `bin/collect_results`' `summary.json`;
+   the inference stage again in-process with the counters reset (its
+   launches), then `bin/from_mel.py` and `bin/from_wav.py` on a test file,
+   and `bash flow2gan_tpu_torch/recipes/infer_dir.sh` in its three modes
+   (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
+   exported generator, each output checked;
+21. the `kernels` JSON line (each kernel's launches on every path, the
    data-parallel ones per rank), then the card line and the result line.
 """
 
@@ -182,9 +196,13 @@ import torch.multiprocessing
 from flow2gan_tpu_torch import get_model, utils_tb
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
 from flow2gan_tpu_torch.bin import (
+    collect_results,
     finetune,
+    from_mel,
+    from_wav,
     infer,
     infer_dir,
+    make_synthetic_corpus,
     pretrain,
     save_averaged_model,
     train_tokenizer,
@@ -2593,6 +2611,148 @@ def observability(card: str, root: Path, averaged: Path, base_step_ms: float) ->
     return {"pretrain": pre, "inf_check": inf, "diagnostics": diag, "finetune": gan}
 
 
+# ------------------------------------------------------------ the recipe (20)
+
+RECIPE = Path(__file__).resolve().parent / "flow2gan_tpu_torch" / "recipes" / "run_libritts.sh"
+INFER_DIR = RECIPE.parent / "infer_dir.sh"
+RECIPE_TIMEOUT_S = 600
+
+
+def _finite_metrics(path: Path, keys) -> dict:
+    summary = json.loads(path.read_text())["summary"]
+    if summary["n_files"] <= 0 or not all(math.isfinite(summary[k]) for k in keys):
+        raise AssertionError(f"{path}: {summary}")
+    return summary
+
+
+def recipe(card: str, root: Path) -> dict:
+    """Phase 20: the recipe on the card through `run_libritts.sh` stages 1-6
+    at mel_24k_base, its artifacts checked, then its inference stage again
+    in-process, `bin/from_mel.py` and `bin/from_wav.py`, each with the
+    counters reset, and `recipes/infer_dir.sh`; returns each path's
+    (forward, adjoint) launches."""
+    t0 = time.perf_counter()
+    corpus, data, exp = root / "LibriTTS", root / "manifests", root / "exp"
+    make_synthetic_corpus.main(["--corpus-dir", str(corpus), "--data-dir", str(root / "synthetic"),
+                                "--n-train", "16", "--n-test", "2", "--n-dev", "1",
+                                "--duration", "2.0"])
+    quiet = "--valid-interval 100000 --log-interval 1 --num-workers 4 --tensorboard false"
+    cmd = ["bash", str(RECIPE), "--stage", "1", "--stop-stage", "6", "--corpus-dir", str(corpus),
+           "--data-dir", str(data), "--exp-dir", str(exp), "--model-name", "mel_24k_base",
+           "--train-splits", "train_clean_100", "--n-timesteps-list", "1",
+           "--fm-epochs", "1", "--fm-batch", "8", "--fm-avg", "1",
+           "--gan-epochs", "1", "--gan-batch", "4", "--gan-avg", "1", "--device", "cuda",
+           "--fm-extra-args", quiet, "--gan-extra-args", f"--gen-start-batch-idx 2 {quiet}"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=RECIPE_TIMEOUT_S,
+                          env={**os.environ, "PYTHON": sys.executable})
+    stages = re.findall(r"Stage (\d)[b:]", proc.stdout)
+    if proc.returncode != 0 or "Pipeline done." not in proc.stdout:
+        raise AssertionError(f"run_libritts.sh exited {proc.returncode} after stages {stages}:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    recipe_s = time.perf_counter() - t0
+    manifests = {split: len(read_recording_manifest(data / f"libritts_recordings_{split}.jsonl.gz"))
+                 for split in ("train_clean_100", "dev_clean", "test_clean")}
+    if manifests != {"train_clean_100": 16, "dev_clean": 1, "test_clean": 2}:
+        raise AssertionError(f"stage 1 wrote manifests {manifests}")
+    files = ["fm/epoch-0.pt", "fm/epoch-1.pt", "fm/averaged.pt", "gan_1step/epoch-0.pt",
+             "gan_1step/epoch-1.pt", "gan_1step/generator.pt"]
+    missing = [f for f in files if not (exp / f).is_file()]
+    if missing or not (data / "test_clean_files.txt").is_file():
+        raise AssertionError(f"the recipe left no {missing or 'test list'}")
+    # every step ran on the card: FM 2 steps of 8, the GAN's 4 batches D, D, G, D
+    fm_steps = [json.loads(x) for x in (exp / "fm/steps.jsonl").read_text().splitlines()]
+    gan_steps = [json.loads(x) for x in (exp / "gan_1step/steps.jsonl").read_text().splitlines()]
+    if (len(fm_steps) != 2 or [x["side"] for x in gan_steps] != ["D", "D", "G", "D"]
+            or not all(math.isfinite(x["loss"]) for x in fm_steps + gan_steps)):
+        raise AssertionError(f"recipe steps: FM {fm_steps}, GAN {gan_steps}")
+    if not all("'device': 'cuda'" in (exp / d / "log").joinpath(f).read_text()
+               for d in ("fm", "gan_1step") for f in os.listdir(exp / d / "log")
+               if f.startswith("log-train")):
+        raise AssertionError("a trainer of the recipe did not run on the card")
+    wav_dir = exp / "gan_1step" / "test_clean_wavs" / "test-clean"
+    wavs = sorted(wav_dir.rglob("*.wav"))
+    if [w.name for w in wavs] != ["test_0000.wav", "test_0001.wav"]:
+        raise AssertionError(f"stage 5 wrote {wavs}")
+    pesq = _finite_metrics(exp / "gan_1step" / "metrics_pesq.json", ["mrstft"])
+    pitch = _finite_metrics(exp / "gan_1step" / "metrics_pitch.json",
+                            ["periodicity_rmse", "vuv_f1"])
+    summary = collect_results.main(["--exp-dir", str(exp), "--output-dir", str(root / "results"),
+                                    "--steps", "1"])
+    if list(summary) != ["gan_1step"] or summary["gan_1step"]["pesq"]["n_files"] != 2:
+        raise AssertionError(f"summary.json: {summary}")
+
+    launches = {}
+    test_manifest = data / "libritts_recordings_test_clean.jsonl.gz"
+    fused.launches = fused.adjoint_launches = 0
+    written = infer.main(["--model-name", "mel_24k_base", "--checkpoint",
+                          str(exp / "gan_1step/generator.pt"), "--recordings", str(test_manifest),
+                          "--root-path", str(corpus), "--output-dir", str(root / "infer_again"),
+                          "--n-timesteps", "1", "--device", "cuda"])
+    launches["recipe_infer_stage_1_step"] = (fused.launches, fused.adjoint_launches)
+    for path, again in zip(wavs, sorted(written)):
+        ours, _ = read_wav(again)
+        theirs, _ = read_wav(path)
+        if ours.shape != theirs.shape or np.abs(ours - theirs).max() > 2.0 / 32768:
+            raise AssertionError(f"the inference stage in-process differs from the recipe's: {path}")
+    audio, _ = read_wav(wavs[0])
+    mel = LogMelSpectrogram()(torch.from_numpy(audio)).numpy()
+    np.save(root / "test_0000_mel.npy", mel)
+    outs = {}
+    for name, module, argv in [("from_mel", from_mel, ["--mel-file", str(root / "test_0000_mel.npy")]),
+                               ("from_wav", from_wav, ["--wav-file", str(wavs[0])])]:
+        fused.launches = fused.adjoint_launches = 0
+        out = module.main([*argv, "--checkpoint", str(exp / "gan_1step/generator.pt"),
+                           "--n-timesteps", "1", "--output", str(root / f"{name}.wav"),
+                           "--device", "cuda"])
+        launches[f"recipe_{name}_1_step"] = (fused.launches, fused.adjoint_launches)
+        outs[name], sr = read_wav(out)
+        if sr != 24000 or outs[name].shape != (1, mel.shape[-1] * 256) or not np.isfinite(outs[name]).all():
+            raise AssertionError(f"bin/{name}.py wrote {outs[name].shape} at {sr} Hz")
+    expected = {"recipe_infer_stage_1_step": (3, 0), "recipe_from_mel_1_step": (3, 0),
+                "recipe_from_wav_1_step": (3, 0)}
+    if launches != expected:
+        raise AssertionError(f"recipe launches {launches}, expected {expected}")
+
+    # infer_dir.sh as a user runs it: the test WAVs, the mel above, the WAVs in chunks
+    t1 = time.perf_counter()
+    wav_in = sorted((corpus / "test-clean").rglob("*.wav"))
+    mel_in = root / "infer_dir_mels"
+    mel_in.mkdir()
+    shutil.copy(root / "test_0000_mel.npy", mel_in)
+    out_dir = root / "infer_dir"
+    proc = subprocess.run(["bash", str(INFER_DIR), "--wav-dir", str(wav_in[0].parent),
+                           "--mel-dir", str(mel_in), "--checkpoint", str(exp / "gan_1step/generator.pt"),
+                           "--out-dir", str(out_dir)], capture_output=True, text=True,
+                          timeout=RECIPE_TIMEOUT_S, env={**os.environ, "PYTHON": sys.executable})
+    if proc.returncode != 0:
+        raise AssertionError(f"infer_dir.sh exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    lengths = {}
+    for mode, names in [("out_wav", [w.name for w in wav_in]), ("out_mel", ["test_0000_mel.wav"]),
+                        ("out_stream", [w.name for w in wav_in])]:
+        outs = sorted((out_dir / mode).glob("*.wav"))
+        if [o.name for o in outs] != names:
+            raise AssertionError(f"infer_dir.sh wrote {outs} in {mode}, expected {names}")
+        for o in outs:
+            wav, sr = read_wav(o)
+            if sr != 24000 or wav.size == 0 or not np.isfinite(wav).all():
+                raise AssertionError(f"infer_dir.sh wrote {wav.shape} at {sr} Hz to {o}")
+            lengths[(mode, o.name)] = wav.shape[-1]
+        if not all("'device': 'cuda'" in f.read_text() for f in (out_dir / mode / "log").iterdir()):
+            raise AssertionError(f"infer_dir.sh's {mode} call did not run on the card")
+    if any(lengths[("out_stream", w.name)] != lengths[("out_wav", w.name)] for w in wav_in):
+        raise AssertionError(f"streaming and whole-file lengths differ: {lengths}")
+    infer_dir_s = time.perf_counter() - t1
+    print("recipe " + json.dumps({
+        "run_libritts_s": round(recipe_s, 2), "stages": sorted(set(stages)),
+        "manifests": manifests, "fm_steps": len(fm_steps),
+        "gan_sides": "".join(x["side"] for x in gan_steps), "mrstft": pesq["mrstft"],
+        "periodicity_rmse": pitch["periodicity_rmse"], "vuv_f1": pitch["vuv_f1"],
+        "launches": launches, "infer_dir_s": round(infer_dir_s, 2),
+        "phase_s": round(time.perf_counter() - t0, 2), "card": card}))
+    return launches
+
+
 def main() -> int:
     if sys.argv[1:]:
         print("usage: python3 chip_smoke.py", file=sys.stderr)
@@ -2684,6 +2844,8 @@ def main() -> int:
     tokens = token_family(card, root)
     obs = observability(card, root, averaged, train_step_ms)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
+    recipe_launches = recipe(card, root / "recipe")
+    shutil.rmtree(root, ignore_errors=True)
     dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
                 "gan_g_step_2_ranks_per_rank": 2,
                 f"pretrain_2_ranks_{dp_train['steps']}_steps_per_rank": 3}
@@ -2738,7 +2900,8 @@ def main() -> int:
             "cli_infer_load_gan_4_steps": gan_cli_launches,
             **{k: dp_launches[i][0] for k, i in dp_paths.items()},
             **{k: v[0] for k, v in token_paths.items()},
-            **{k: v[0] for k, v in obs_paths.items()}},
+            **{k: v[0] for k, v in obs_paths.items()},
+            **{k: v[0] for k, v in recipe_launches.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in shapes + reference_batches["istft"]),
         "max_rel_err": max(s["max_rel_err"] for s in shapes + reference_batches["istft"]),
         "ms": sum(s["ms"] for s in step),
@@ -2769,7 +2932,8 @@ def main() -> int:
                              "gan_g_step_remat": remat_launches["remat"][1],
                              **{k: dp_launches[i][1] for k, i in dp_paths.items()},
                              **{k: v[1] for k, v in token_paths.items()},
-                             **{k: v[1] for k, v in obs_paths.items()}},
+                             **{k: v[1] for k, v in obs_paths.items()},
+                             **{k: v[1] for k, v in recipe_launches.items()}},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "ms": sum(s["ms"] for s in train_step),

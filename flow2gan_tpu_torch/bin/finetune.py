@@ -25,7 +25,9 @@ epoch and checkpoint-<batch>.pt every --save-every-n batches (the last
 generator's float64 running average and the D/G alternation state, so
 --start-epoch resumes exactly; a batch checkpoint also holds the sampler's
 position, from which --resume-from continues mid-epoch.
-`bin/save_averaged_model.py --load-gan true` exports the generator.
+`bin/save_averaged_model.py --load-gan true` exports the generator. Each
+step's record (side D or G, loss, lr, clip scale, wall ms) goes to
+`<exp-dir>/steps.jsonl` as the step ends, as in `bin/pretrain.py`.
 `--freeze-modules` and `--lr-scale-rules` apply to the generator only.
 
 Data parallelism as in `bin/pretrain.py`: `--batch-size` is global, each
@@ -62,11 +64,13 @@ from flow2gan_tpu_torch.bin.pretrain import (
     DIAGNOSTIC_BATCHES,
     ProfileWindow,
     _to_device,
+    add_step_record,
     build_loaders,
     epoch_sampler,
     load_test_batch,
     log_dominant_grads,
     lr_scales,
+    open_step_records,
     open_tensorboard,
     print_diagnostics,
     resume_checkpoint,
@@ -307,6 +311,7 @@ def _finetune(args, device: torch.device) -> List[dict]:
     profile = ProfileWindow(args.profile_dir, device)
     gt_dumped = False  # the test samples' ground truth is written once a run
     history = []
+    steps_file = open_step_records(args, exp_dir)
     try:
         for epoch in range(args.start_epoch, args.num_epochs + 1):
             rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
@@ -340,9 +345,10 @@ def _finetune(args, device: torch.device) -> List[dict]:
                     train_disc = True
                 values = torch.stack([metrics[k] for k in keys]).tolist()
                 loss_val, clip_val, lr = values[0], float(metrics["clip_scale"]), metrics[lr_key]
-                history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "side": side,
-                                "loss": loss_val, "lr": lr, "clip_scale": clip_val,
-                                "ms": (time.perf_counter() - start) * 1e3})
+                add_step_record(history, steps_file, {
+                    "batch_idx_train": batch_idx_train, "dl": dl_idx, "side": side,
+                    "loss": loss_val, "lr": lr, "clip_scale": clip_val,
+                    "ms": (time.perf_counter() - start) * 1e3})
                 n = batch["audio"].shape[0]
                 info = MetricsTracker()
                 info["samples"] = n
@@ -424,6 +430,8 @@ def _finetune(args, device: torch.device) -> List[dict]:
         profile.close()
         if tb_writer is not None:
             tb_writer.close()
+        if steps_file is not None:
+            steps_file.close()
     logging.info("Done!")
     return history
 

@@ -19,7 +19,10 @@ checkpoint-<batch>.pt` continues mid-epoch where it was written.
 the JAX package's syntax (`cond_encoder`, `estimators_0/blocks_0=0.1`);
 `--train-dls-weights` weights the choice among the training manifests.
 Every checkpoint holds `env_info` (`training/env.py`) and the best
-validation loss so far (`best_valid_loss`, `best_valid_epoch`).
+validation loss so far (`best_valid_loss`, `best_valid_epoch`). Each step's
+record (batch index, loss, lr, clip scale, wall ms) goes to
+`<exp-dir>/steps.jsonl` as the step ends (`open_step_records`), from which
+the recipe's step medians are read.
 
     python -m flow2gan_tpu_torch.bin.pretrain --exp-dir exp/fm \
         --model-name mel_24k_base --train-recordings data/train.jsonl.gz \
@@ -54,6 +57,7 @@ Observability, as in the JAX package:
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import random
 import time
@@ -266,6 +270,24 @@ def epoch_sampler(args, epoch: int, train_dls, resume_sampler: Optional[dict]) -
     for dl in train_dls:
         dl.set_epoch(epoch)
     return random.Random(args.seed + epoch)
+
+
+def open_step_records(args, exp_dir: Path):
+    """`<exp_dir>/steps.jsonl`, line-buffered, to which each step's record is
+    written as one JSON line when the step ends: emptied where the run
+    starts afresh, appended to where it resumes (`--start-epoch` > 1 or
+    `--resume-from`). Rank 0 alone writes; the others get None."""
+    if not dist.is_main():
+        return None
+    fresh = args.start_epoch == 1 and not args.resume_from
+    return open(Path(exp_dir) / "steps.jsonl", "w" if fresh else "a", buffering=1)
+
+
+def add_step_record(history: List[dict], steps_file, record: dict) -> None:
+    """Keep a step's record, and write it where `steps_file` is open."""
+    history.append(record)
+    if steps_file is not None:
+        steps_file.write(json.dumps(record) + "\n")
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
@@ -481,6 +503,7 @@ def _train(args, device: torch.device) -> List[dict]:
     profile = ProfileWindow(args.profile_dir, device)
     gt_dumped = False  # the test samples' ground truth is written once a run
     history = []
+    steps_file = open_step_records(args, exp_dir)
     try:
         for epoch in range(args.start_epoch, args.num_epochs + 1):
             rng_py = epoch_sampler(args, epoch, train_dls, resume_sampler)
@@ -508,9 +531,10 @@ def _train(args, device: torch.device) -> List[dict]:
                     step_generator(args.seed + 1, batch_idx_train - 1, device))
                 loss_val = float(metrics["loss"])
                 clip_val = float(metrics["clip_scale"])
-                history.append({"batch_idx_train": batch_idx_train, "dl": dl_idx, "loss": loss_val,
-                                "lr": metrics["lr"], "clip_scale": clip_val,
-                                "ms": (time.perf_counter() - start) * 1e3})
+                add_step_record(history, steps_file, {
+                    "batch_idx_train": batch_idx_train, "dl": dl_idx, "loss": loss_val,
+                    "lr": metrics["lr"], "clip_scale": clip_val,
+                    "ms": (time.perf_counter() - start) * 1e3})
                 profile.after(batch_idx_train)
                 n = batch["audio"].shape[0]
                 info = MetricsTracker()
@@ -593,6 +617,8 @@ def _train(args, device: torch.device) -> List[dict]:
         profile.close()
         if tb_writer is not None:
             tb_writer.close()
+        if steps_file is not None:
+            steps_file.close()
     logging.info("Done!")
     return history
 

@@ -43,7 +43,7 @@ from torch import nn
 
 from flow2gan_tpu_torch.models.convnext import AudioConvNeXt, CondEncoder
 from flow2gan_tpu_torch.models.norms import number_limiters
-from flow2gan_tpu_torch.ops.mel import linear_fbanks, spectrogram
+from flow2gan_tpu_torch.ops.mel import linear_fbanks, linear_filter_spectrogram
 from flow2gan_tpu_torch.ops.stft import num_frames, stft_lens
 from flow2gan_tpu_torch.parallel.dist import Shard
 from flow2gan_tpu_torch.utils import make_valid_mask
@@ -213,7 +213,8 @@ class BaseAudioGenerator(nn.Module):
 
     def _loss_spec(self, audio: torch.Tensor) -> torch.Tensor:
         """Linear-filterbank power spectrogram, time-major (B, T_s, n_filters)."""
-        return spectrogram(audio, self.loss_n_fft, self.loss_hop_length, power=2.0) @ self.loss_fbank
+        return linear_filter_spectrogram(audio, self.loss_fbank, self.loss_n_fft,
+                                         self.loss_hop_length)
 
     def _loss_mask(self, audio_lens: torch.Tensor, length: int) -> torch.Tensor:
         """The loss's mask over the samples (B, L), or with

@@ -1,11 +1,14 @@
 """Mel frontends and the FM loss's linear filterbank in PyTorch, counterpart
 of `flow2gan_tpu/ops/mel.py`: HTK mel scale, norm=None (torchaudio's
 `MelSpectrogram` defaults). `LogMelSpectrogram` conditions the generator;
-`MelSpectrogram` (no log) is a scale of the GAN stage's mel loss."""
+`MelSpectrogram` (no log) is a scale of the GAN stage's mel loss;
+`LinearFilterSpectrogram` is the spectral-energy-scaled FM loss's filterbank
+power spectrogram as a module."""
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -102,3 +105,33 @@ class MelSpectrogram(nn.Module):
     def forward(self, audio: torch.Tensor) -> torch.Tensor:
         mag = spectrogram(audio, self.n_fft, self.hop_length, power=self.power)
         return (mag @ self.fb).transpose(-1, -2)
+
+
+def linear_filter_spectrogram(audio: torch.Tensor, fb: torch.Tensor, n_fft: int,
+                              hop_length: int, power: float = 2.0) -> torch.Tensor:
+    """(B, L) waveform -> (B, frames, n_filter) |STFT|^power through the
+    linear filterbank `fb` (`linear_fbanks`), time-major: the spectrogram
+    that the spectral-energy-scaled FM loss weighs by (`models/generator.py
+    _loss_spec`), and `LinearFilterSpectrogram`'s transposed."""
+    return spectrogram(audio, n_fft, hop_length, power=power) @ fb
+
+
+class LinearFilterSpectrogram(nn.Module):
+    """(B, L) waveform -> (B, n_filter, frames) `linear_filter_spectrogram`
+    through a linear triangular filterbank over [f_min, f_max] (f_max
+    defaults to Nyquist, the hop to n_fft // 2)."""
+
+    def __init__(self, sample_rate: int, n_filter: int, n_fft: int,
+                 hop_length: Optional[int] = None, f_min: float = 0.0,
+                 f_max: Optional[float] = None, power: float = 2.0):
+        super().__init__()
+        self.n_fft = n_fft
+        self.hop_length = hop_length if hop_length is not None else n_fft // 2
+        self.power = power
+        f_max = f_max if f_max is not None else float(sample_rate // 2)
+        fb = linear_fbanks(n_fft // 2 + 1, f_min, f_max, n_filter, sample_rate)
+        self.register_buffer("fb", torch.from_numpy(fb), persistent=False)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        return linear_filter_spectrogram(audio, self.fb, self.n_fft, self.hop_length,
+                                         self.power).transpose(-1, -2)

@@ -13,7 +13,8 @@ rank 0 of a multi-process run writes; every rank reads. The GAN trainer's
 Averaging:
 
 - the Polyak running average avg = cur * (period/step) + avg * (1 -
-  period/step), in float64 (`update_averaged_model`);
+  period/step), in float64 (`update_averaged_model`), and the EMA
+  ema * decay + cur * (1 - decay) (`update_ema_model`);
 - a plain mean of N checkpoints (`average_checkpoints`);
 - the average over a window (start, end] by differencing the two
   checkpoints' running averages, with the reference's overflow-safe rescaling
@@ -101,6 +102,11 @@ def update_averaged_model(model_avg: StateDict, model_cur: StateDict, average_pe
     avg * (1 - period/step)."""
     weight_cur = average_period / batch_idx_train
     return average_state_trees(model_avg, model_cur, 1.0 - weight_cur, weight_cur)
+
+
+def update_ema_model(model_ema: StateDict, model_cur: StateDict, ema_decay: float) -> StateDict:
+    """Exponential moving average in float64: ema * decay + cur * (1 - decay)."""
+    return average_state_trees(model_ema, model_cur, ema_decay, 1.0 - ema_decay)
 
 
 def average_checkpoints(filenames: List[Pathlike], load_gan: bool = False) -> StateDict:

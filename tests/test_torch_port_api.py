@@ -1,5 +1,6 @@
 """The port's public API, its device policy and its import boundary."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -54,6 +55,19 @@ def test_port_imports_no_jax():
         "flow2gan_tpu_torch.training.diagnostics", "flow2gan_tpu_torch.utils_tb",
         "flow2gan_tpu_torch.compat.flax_msgpack",
     } <= set(modules) and len(modules) >= 41
+
+
+def test_recipes_call_only_the_port():
+    """No recipe of the port calls the JAX package or the JAX repo's
+    scripts/: every step is a `flow2gan_tpu_torch` module or recipe."""
+    recipes = sorted((REPO / "flow2gan_tpu_torch" / "recipes").glob("*.sh"))
+    assert {p.name for p in recipes} >= {"run_libritts.sh", "infer_dir.sh",
+                                         "preflight_pipeline.sh", "drive_generalization.sh"}
+    for path in recipes:
+        text = path.read_text()
+        assert "flow2gan_tpu." not in text and "flow2gan_tpu/" not in text, path.name
+        assert not re.search(r"(^|[\s\"'/])scripts/", text), path.name
+        assert "flow2gan_tpu_torch.bin." in text, path.name
 
 
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
