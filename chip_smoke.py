@@ -39,7 +39,10 @@ prints no result line):
 8. the device-time breakdown of one 1-step call (torch.profiler);
 9. gradients, card against CPU: the FM loss of full mel_24k_base at batch
    2 x 1 s and every parameter's gradient, with the same weights and draws,
-   and the launches of both kernels in that step;
+   and the launches of both kernels in that step; then, report only, the
+   same step on the CPU in float64, and the card's and the CPU's float32
+   gradients against it (whole and worst tensor, and the tensor that holds
+   most of the card-vs-CPU gap), with the seconds it took;
 10. the trainer: a synthetic 24 kHz corpus written under build/, the port's
    `bin/pretrain.py` run in-process on mel_24k_base (batch 16 x 1.5 s, 32
    steps), with its launch counts, loss curve, step times, audio trained per
@@ -163,7 +166,10 @@ prints no result line):
    metric CLIs; every stage's exit code and artifacts (manifests,
    `epoch-*.pt`, `averaged.pt`, `generator.pt`, the WAVs, metric JSONs with
    n_files > 0 and finite values), `bin/collect_results`' `summary.json`;
-   the inference stage again in-process with the counters reset (its
+   the GAN run exported again with `--use-averaged-model false` (the last
+   weights, the second export of `recipes/drive_generalization.sh`): equal
+   to epoch-1's generator bit for bit, and the windowed `generator.pt`
+   not; the inference stage again in-process with the counters reset (its
    launches), then `bin/from_mel.py` and `bin/from_wav.py` on a test file,
    and `bash flow2gan_tpu_torch/recipes/infer_dir.sh` in its three modes
    (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
@@ -733,7 +739,7 @@ def _rel_all(a: dict, b: dict) -> float:
 
 
 def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5,
-                      float64: bool = False) -> tuple:
+                      float64: str = None) -> tuple:
     """The FM loss and every parameter gradient of a full-width config
     (mel_24k_base, or token_24k_base on random token ids) at batch 2 x 1 s,
     card against CPU, with the same weights, t, x0, gates and branch
@@ -742,13 +748,15 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
 
     With `float64` the CPU also runs the step in float64 (the same weights
     and inputs, widened), the exact gradient as far as float32 can tell,
-    and a tensor whose card-vs-CPU error passes GRAD_TENSOR_TOL still
-    passes if the card holds that limit against the exact gradient and is
-    as near it as the CPU: its error against float64 at most
-    GRAD_TENSOR_TOL and at most GRAD_F64_RATIO times the CPU's. A gradient
-    that nearly cancels (a BiasNorm's log_scale) can put the CPU's float32
-    far from the exact one. The loss and the whole gradient keep their
-    limits."""
+    and the card's and the CPU's float32 gradients are reported against it
+    on a line of their own. With `float64="check"` a tensor whose
+    card-vs-CPU error misses GRAD_TENSOR_TOL still passes if the card holds
+    that limit against the exact gradient and is as near it as the CPU: its
+    error against float64 at most GRAD_TENSOR_TOL and at most
+    GRAD_F64_RATIO times the CPU's. A gradient that nearly cancels (a
+    BiasNorm's log_scale) can put the CPU's float32 far from the exact one.
+    With `float64="report"` the limits are the float32 ones alone. The loss
+    and the whole gradient keep their limits."""
     cfg = get_generator_config(model_name)
     cpu = init_weights(build_generator(cfg), torch.Generator().manual_seed(0))
     gpu = copy.deepcopy(cpu).cuda()
@@ -795,13 +803,26 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
         "grad_rel_err_median_tensor": statistics.median(per.values()),
         "largest_error_tensor": largest, "its_share_of_the_error": err_sq[largest] / max(sum(err_sq.values()), 1e-300),
         "launches_forward_adjoint": launches, "card": card}
+    if float64 not in (None, "check", "report"):
+        raise ValueError(f"float64 is None, 'check' or 'report', not {float64!r}")
     if float64:
+        t0 = time.perf_counter()
         exact = copy.deepcopy(cpu).double()
         loss64, g64 = run(exact, "cpu", torch.float64)
         del exact
         card64, cpu64 = _rel_per_tensor(g_gpu, g64), _rel_per_tensor(g_cpu, g64)
-        passes = {k: passes[k] or card64[k] <= min(GRAD_TENSOR_TOL, GRAD_F64_RATIO * cpu64[k])
-                  for k in per}
+        if float64 == "check":
+            passes = {k: passes[k] or card64[k] <= min(GRAD_TENSOR_TOL, GRAD_F64_RATIO * cpu64[k])
+                      for k in per}
+        card_worst, cpu_worst = max(card64, key=card64.get), max(cpu64, key=cpu64.get)
+        print("grads vs float64 " + json.dumps({
+            "config": model_name, "seed": seed, "mode": float64,
+            "whole_card_vs_f64": _rel_all(g_gpu, g64), "whole_cpu_vs_f64": _rel_all(g_cpu, g64),
+            "worst_tensor_card_vs_f64": card64[card_worst], "its_name_card": card_worst,
+            "worst_tensor_cpu_vs_f64": cpu64[cpu_worst], "its_name_cpu": cpu_worst,
+            "largest_card_vs_cpu_error_tensor": largest,
+            "its_card_vs_f64": card64[largest], "its_cpu_vs_f64": cpu64[largest],
+            "float64_step_s": round(time.perf_counter() - t0, 2), "card": card}))
         over = sorted((k for k in per if per[k] > GRAD_TENSOR_TOL), key=lambda k: -per[k])
         far = sorted(per, key=lambda k: -card64[k])[:5]
         report.update({
@@ -2275,7 +2296,7 @@ def token_family(card: str, root: Path) -> dict:
     launches of both kernels."""
     codebook = token_codebook(card, root)
     serving = token_serving(card, codebook)
-    fm_step = [grads_card_vs_cpu(card, "token_24k_base", seed, float64=True) for seed in (5, 6)]
+    fm_step = [grads_card_vs_cpu(card, "token_24k_base", seed, float64="check") for seed in (5, 6)]
     train_launches, averaged = token_trainer(card, root, codebook)
     gan = token_finetune(card, root, codebook, averaged)
     cli_launches = token_clis(card, root, codebook, averaged)
@@ -2680,6 +2701,19 @@ def recipe(card: str, root: Path) -> dict:
                                     "--steps", "1"])
     if list(summary) != ["gan_1step"] or summary["gan_1step"]["pesq"]["n_files"] != 2:
         raise AssertionError(f"summary.json: {summary}")
+    # the drive's second export: the last weights, where the windowed one
+    # (average period 200 over 4 batches) is the FM generator it started from
+    last = save_averaged_model.main(["--exp-dir", str(exp / "gan_1step"), "--epoch", "1",
+                                     "--avg", "1", "--use-averaged-model", "false",
+                                     "--load-gan", "true", "--output",
+                                     str(root / "exp_last" / "gan_1step" / "generator.pt")])
+    last = torch.load(last, weights_only=True)
+    epoch1 = ckpt.load_checkpoint(exp / "gan_1step" / "epoch-1.pt")["model"]["generator"]
+    windowed = torch.load(exp / "gan_1step" / "generator.pt", weights_only=True)
+    if last.keys() != epoch1.keys() or not all(torch.equal(last[k], epoch1[k]) for k in epoch1):
+        raise AssertionError("the last-weights export differs from epoch-1's generator")
+    if windowed.keys() != last.keys() or all(torch.equal(windowed[k], last[k]) for k in last):
+        raise AssertionError("the windowed export equals the last weights")
 
     launches = {}
     test_manifest = data / "libritts_recordings_test_clean.jsonl.gz"
@@ -2747,6 +2781,7 @@ def recipe(card: str, root: Path) -> dict:
         "run_libritts_s": round(recipe_s, 2), "stages": sorted(set(stages)),
         "manifests": manifests, "fm_steps": len(fm_steps),
         "gan_sides": "".join(x["side"] for x in gan_steps), "mrstft": pesq["mrstft"],
+        "last_weights_export": "equals epoch-1's generator; the windowed export differs",
         "periodicity_rmse": pitch["periodicity_rmse"], "vuv_f1": pitch["vuv_f1"],
         "launches": launches, "infer_dir_s": round(infer_dir_s, 2),
         "phase_s": round(time.perf_counter() - t0, 2), "card": card}))
@@ -2824,7 +2859,7 @@ def main() -> int:
     bf16_launches = bf16_serving(card, model, mel)
     del model
     card44_launches = card_vs_cpu_44k(card)
-    grads_card_vs_cpu(card)
+    grads_card_vs_cpu(card, float64="report")
     discriminators_card_vs_cpu(card)
     gan_grad_launches = gan_grads_card_vs_cpu(card)
     root = Path(__file__).resolve().parent / "build" / "smoke_train"

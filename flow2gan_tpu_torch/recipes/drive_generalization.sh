@@ -9,7 +9,11 @@
 #   FM      4 epochs at batch 16 (6,000 steps), averaged over the last 2
 #   FM rows n = 1/2/4 Euler steps from the averaged FM generator
 #   GAN     per n: 1 epoch of 750 batches at batch 16, a 100-batch D-only
-#           warm-up, --remat-rollout, exported over (epoch-0, epoch-1]
+#           warm-up, --remat-rollout, exported twice: over (epoch-0, epoch-1]
+#           (the running average, taken every 200 batches) to
+#           $R/exp/gan_{n}step/, and as the last weights of epoch-1
+#           (--use-averaged-model false), the export the JAX drive's GAN rows
+#           had, to $R/exp_last/gan_{n}step/; both are scored
 #   GAN'    the GAN rows again at --seed $SEED2 (the discriminators' init,
 #           the batch order and the noise and flow-time draws change), from
 #           the same averaged FM generator, so that two seeds' spread shows
@@ -21,8 +25,10 @@
 #
 # Usage: drive_generalization.sh [start_stage] [stop_stage]
 #   stage 1 = preflight     stage 2 = corpus + FM pretraining + average
-#   stage 3 = FM rows       stage 4 = GAN rows, one n at a time
-#   stage 5 = the GAN rows at the second seed, to $OUT/seed$SEED2/
+#   stage 3 = FM rows       stage 4 = GAN rows, one n at a time; the
+#                                     last-weights rows to $OUT/last/
+#   stage 5 = the GAN rows at the second seed, to $OUT/seed$SEED2/ (and
+#             $OUT/seed$SEED2/last/)
 # Environment: R (work dir, default build/torch_gen), OUT (results dir,
 # default results/torch_generalization), PYTHON. Every step runs on the card.
 # Each stage's wall time goes to $OUT/stage_times.jsonl, the trainers' step
@@ -104,9 +110,10 @@ PY
 
 gan_rows() {  # gan_rows EXP TAG [trainer flags]: train, export and score the GAN at n = 1, 2, 4
   local exp=$1 tag=$2; shift 2
+  local last=${exp}_last  # the last-weights exports, scored as rows of their own
   for n in 1 2 4; do
-    if [ ! -f "$exp/gan_${n}step/generator.pt" ]; then
-      rm -rf "$exp/gan_${n}step"  # a half-trained run starts again
+    if [ ! -f "$exp/gan_${n}step/generator.pt" ] || [ ! -f "$last/gan_${n}step/generator.pt" ]; then
+      rm -rf "$exp/gan_${n}step" "$last/gan_${n}step"  # a half-trained run starts again
       timed "${tag}gan_${n}step_train_and_export" bash "$recipe" --stage 4 --stop-stage 4 \
         --corpus-dir "$R/LibriTTS" --data-dir "$R/manifests_gan" --exp-dir "$exp" \
         --model-name mel_24k_base --train-splits train_clean_100 \
@@ -114,15 +121,22 @@ gan_rows() {  # gan_rows EXP TAG [trainer flags]: train, export and score the GA
         --gan-epochs 1 --gan-batch 16 --gan-avg 1 \
         --gan-extra-args "$GAN_ARGS $*" \
         2>&1 | tee -a "$LOG"
+      timed "${tag}gan_${n}step_export_last" "$py" -m flow2gan_tpu_torch.bin.save_averaged_model \
+        --exp-dir "$exp/gan_${n}step" --epoch 1 --avg 1 --use-averaged-model false \
+        --load-gan true --output "$last/gan_${n}step/generator.pt" 2>&1 | tee -a "$LOG"
       disk "${tag}gan_${n}step_checkpoints" "$exp/gan_${n}step"
       rm -f "$exp/gan_${n}step"/epoch-*.pt "$exp/gan_${n}step"/checkpoint-*.pt
     fi
-    if ! has_rows "$exp/gan_${n}step/metrics_pitch.json"; then
-      timed "${tag}gan_${n}step_infer_and_metrics" bash "$recipe" --stage 5 --stop-stage 6 \
-        --corpus-dir "$R/LibriTTS" --data-dir "$R/manifests_gan" --exp-dir "$exp" \
-        --model-name mel_24k_base --train-splits train_clean_100 \
-        --n-timesteps-list "$n" 2>&1 | tee -a "$LOG"
-    fi
+    for e in "$exp" "$last"; do
+      if ! has_rows "$e/gan_${n}step/metrics_pitch.json"; then
+        local kind=""
+        if [ "$e" = "$last" ]; then kind="last_"; fi
+        timed "${tag}gan_${n}step_${kind}infer_and_metrics" bash "$recipe" --stage 5 --stop-stage 6 \
+          --corpus-dir "$R/LibriTTS" --data-dir "$R/manifests_gan" --exp-dir "$e" \
+          --model-name mel_24k_base --train-splits train_clean_100 \
+          --n-timesteps-list "$n" 2>&1 | tee -a "$LOG"
+      fi
+    done
   done
 }
 
@@ -181,6 +195,7 @@ fi
 if [ "$stage" -le 4 ] && [ "$stop" -ge 4 ]; then
   gan_rows "$R/exp" ""
   collect "$R/exp" "$OUT"
+  collect "$R/exp_last" "$OUT/last"
 fi
 
 if [ "$stage" -le 5 ] && [ "$stop" -ge 5 ]; then
@@ -189,5 +204,6 @@ if [ "$stage" -le 5 ] && [ "$stop" -ge 5 ]; then
   ln -sfn "$R/exp/fm" "$R/exp_seed$SEED2/fm"
   gan_rows "$R/exp_seed$SEED2" "seed${SEED2}_" --seed "$SEED2"
   collect "$R/exp_seed$SEED2" "$OUT/seed$SEED2"
+  collect "$R/exp_seed${SEED2}_last" "$OUT/seed$SEED2/last"
 fi
 echo "DRIVE_GENERALIZATION_DONE $(date -u)" | tee -a "$LOG"

@@ -443,6 +443,76 @@ def test_drive_generalization_keeps_the_jax_drives_budgets():
     assert 'ln -sfn "$R/exp/fm" "$R/exp_seed$SEED2/fm"' in ours
 
 
+_STAND_IN_RECIPE = r"""#!/usr/bin/env bash
+# run_libritts.sh's stage 4 (a GAN run's two epoch checkpoints, then the
+# recipe's own windowed export) and stages 5-6 (metric files), in seconds
+set -euo pipefail
+while [ $# -gt 0 ]; do
+  case "$1" in --stage) st=$2;; --exp-dir) exp=$2;; --n-timesteps-list) n=$2;; esac; shift
+done
+run=$exp/gan_${n}step
+if [ "$st" = 4 ]; then
+  mkdir -p "$run"; cp "$CKPTS"/epoch-*.pt "$run/"
+  "$PYTHON" -m flow2gan_tpu_torch.bin.save_averaged_model --exp-dir "$run" --epoch 1 --avg 1 \
+    --load-gan true --output "$run/generator.pt"
+else
+  for m in pesq pitch; do cp "$METRICS/gan_${n}step_metrics_$m.json" "$run/metrics_$m.json"; done
+fi
+"""
+
+
+def test_drive_generalization_scores_the_windowed_and_the_last_weights(tmp_path):
+    """The replay's GAN stage (stage 4) with run_libritts.sh stood in for:
+    each run is exported twice before its checkpoints are deleted, the
+    windowed running average to exp/ and the last weights of epoch-1 to
+    exp_last/, both are scored, and the last-weights rows are collected
+    into $OUT/last/ against the JAX rows."""
+    ckpts = tmp_path / "ckpts"
+    g0 = {"w": torch.zeros(3), "b": torch.ones(2)}
+    g1 = {"w": torch.tensor([1.0, 2.0, 3.0]), "b": torch.tensor([0.5, 0.25])}
+    avg = {"w": torch.tensor([0.5, 1.0, 1.5], dtype=torch.float64), "b": torch.ones(2, dtype=torch.float64)}
+    for epoch, gen, running in ((0, g0, {k: v.double() for k, v in g0.items()}), (1, g1, avg)):
+        ckpt.save_checkpoint(ckpts / f"epoch-{epoch}.pt",
+                             model={"generator": gen, "discriminator": {"d": torch.ones(1)}},
+                             model_avg=running, train_params={"batch_idx_train": 750 * epoch})
+    drive = tmp_path / "drive.sh"
+    stand_in = tmp_path / "recipe.sh"
+    stand_in.write_text(_STAND_IN_RECIPE)
+    text = (RECIPES / "drive_generalization.sh").read_text()
+    line = 'recipe="$REPO/flow2gan_tpu_torch/recipes/run_libritts.sh"'
+    assert text.count(line) == 1
+    drive.write_text(text.replace(line, f'recipe="{stand_in}"').replace(
+        'REPO=$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd)', f'REPO="{REPO}"'))
+    work, out = tmp_path / "R", tmp_path / "OUT"
+    fm_rows = REPO / "results" / "torch_generalization"
+    for n in (1, 2, 4):
+        for m in ("pesq", "pitch"):
+            dst = work / "exp" / f"fm_{n}step" / f"metrics_{m}.json"
+            dst.parent.mkdir(parents=True, exist_ok=True)
+            dst.write_text((fm_rows / f"fm_{n}step_metrics_{m}.json").read_text())
+    env = {**os.environ, "R": str(work), "OUT": str(out), "PYTHON": sys.executable,
+           "CKPTS": str(ckpts), "METRICS": str(fm_rows)}
+    proc = subprocess.run(["bash", str(drive), "4", "4"], env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    for n in (1, 2, 4):
+        windowed = torch.load(work / "exp" / f"gan_{n}step" / "generator.pt", weights_only=True)
+        last = torch.load(work / "exp_last" / f"gan_{n}step" / "generator.pt", weights_only=True)
+        assert all(torch.equal(windowed[k], avg[k].float()) for k in avg)
+        assert all(torch.equal(last[k], g1[k]) for k in g1)
+        assert not list((work / "exp" / f"gan_{n}step").glob("epoch-*.pt"))
+        for e in ("exp", "exp_last"):
+            assert (work / e / f"gan_{n}step" / "metrics_pitch.json").is_file()
+    for summary in (out / "summary.json", out / "last" / "summary.json"):
+        rows = json.loads(summary.read_text())
+        assert {"gan_1step", "gan_2step", "gan_4step", "fm_1step"} <= set(rows)
+    assert "r4_generalization/summary.json" in (out / "last" / "summary.md").read_text()
+    stages = [json.loads(x)["stage"] for x in (out / "stage_times.jsonl").read_text().splitlines()]
+    assert stages == [f"gan_{n}step_{s}" for n in (1, 2, 4) for s in
+                      ("train_and_export", "export_last", "infer_and_metrics",
+                       "last_infer_and_metrics")]
+
+
 def test_step_records_start_afresh_and_append_on_resume(tmp_path):
     """`<exp>/steps.jsonl` is emptied where a run starts afresh, appended to
     where it resumes, and holds each record as soon as it is added."""
