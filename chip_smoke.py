@@ -6,7 +6,8 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero and
-prints no result line):
+prints no result line), and each followed by a line `phase <name> <seconds>`,
+its wall time (phase 18 one such line for each of its parts):
 
 1. the card (`nvidia-smi` name and power limit) and the torch / CUDA versions;
 2. the build of `flow2gan_tpu_torch/csrc/fused_istft.cu` with nvcc: its time
@@ -134,7 +135,9 @@ prints no result line):
       step's launches, losses, step ms, audio per second, peak memory; one
       step's device time by family;
    e. `bin/finetune.py --tokenizer` at 4 Euler steps from d's average, 8
-      batches: every step's launches (D 12; G 12 and 12), losses;
+      batches: every step's launches (D 12; G 12 and 12), losses; its two
+      exports, as phase 20 checks them: the last weights equal epoch-1's
+      generator bit for bit, the windowed average does not;
    f. `bin/infer --tokenizer`, and `bin/infer_dir` with `--tokenizer` on
       wavs and `--tokens true` on their ids, whole and chunked;
 19. observability, on mel_24k_base from phase 10's corpus and averaged
@@ -326,6 +329,19 @@ TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration"
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
               "--keep-last-k", "1", "--average-period", "4", "--log-interval", "8",
               "--valid-interval", "16", "--device", "cuda", "--tensorboard", "false"]
+
+
+class PhaseClock:
+    """Prints `phase <name> <seconds>` as each phase ends: its wall time,
+    from the end of the phase before (or the clock's start)."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def done(self, name: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {name} {now - self.t:.2f}")
+        self.t = now
 
 
 def card_line() -> str:
@@ -2187,7 +2203,8 @@ def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
 def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
     """18e: `bin/finetune.py --tokenizer` on token_24k_base at 4 Euler steps,
     batch 16 x 1.5 s, from 18d's average, 8 batches (2 D-only); every step's
-    launches checked: D 12 forward, G 12 forward and 12 adjoint."""
+    launches checked: D 12 forward, G 12 forward and 12 adjoint; the run
+    exported both ways (`check_gan_exports`)."""
     exp = root / "tokens" / "exp_gan"
     args = finetune.get_parser().parse_args([
         "--model-name", "token_24k_base", "--tokenizer", str(codebook),
@@ -2214,6 +2231,11 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite token GAN loss: {losses}")
+    # the token drive's two exports: the windowed average over batches 4 and
+    # 8, and the last weights
+    windowed = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "1", "--avg", "1",
+                                         "--load-gan", "true", "--output", str(exp / "generator.pt")])
+    check_gan_exports(exp, windowed, exp / "last" / "generator.pt")
     ms = {side: [h["ms"] for h in history if h["side"] == side][1:] for side in ("D", "G")}
     print("token fine-tuner " + json.dumps({
         "config": "token_24k_base", "n_timesteps": GAN_STEPS, "batch": 16,
@@ -2222,9 +2244,27 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
         "loss_g": [h["loss"] for h in history if h["side"] == "G"],
         "d_step_ms_median": statistics.median(ms["D"]), "g_step_ms_median": statistics.median(ms["G"]),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+        "last_weights_export": "equals epoch-1's generator; the windowed export differs",
         "card": card}))
     shutil.rmtree(exp, ignore_errors=True)
     return launches
+
+
+def check_gan_exports(run: Path, windowed: Path, last: Path) -> None:
+    """A GAN run's two exports, as the held-out drives make them: the last
+    weights (`save_averaged_model --use-averaged-model false` over epoch 1,
+    written to `last`) equal epoch-1's generator bit for bit, and the
+    windowed export `windowed` (the running average over (epoch-0,
+    epoch-1]) does not."""
+    last = torch.load(save_averaged_model.main([
+        "--exp-dir", str(run), "--epoch", "1", "--avg", "1", "--use-averaged-model", "false",
+        "--load-gan", "true", "--output", str(last)]), weights_only=True)
+    epoch1 = ckpt.load_checkpoint(run / "epoch-1.pt")["model"]["generator"]
+    windowed = torch.load(windowed, weights_only=True)
+    if last.keys() != epoch1.keys() or not all(torch.equal(last[k], epoch1[k]) for k in epoch1):
+        raise AssertionError(f"{run}: the last-weights export differs from epoch-1's generator")
+    if windowed.keys() != last.keys() or all(torch.equal(windowed[k], last[k]) for k in last):
+        raise AssertionError(f"{run}: the windowed export equals the last weights")
 
 
 def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
@@ -2291,16 +2331,22 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
     return launches
 
 
-def token_family(card: str, root: Path) -> dict:
-    """Phase 18, the token family at full width: 18a-f. Returns each path's
-    launches of both kernels."""
+def token_family(card: str, root: Path, clock: PhaseClock) -> dict:
+    """Phase 18, the token family at full width: 18a-f, each timed on
+    `clock`. Returns each path's launches of both kernels."""
     codebook = token_codebook(card, root)
+    clock.done("18a_token_codebook")
     serving = token_serving(card, codebook)
+    clock.done("18b_token_serving")
     fm_step = [grads_card_vs_cpu(card, "token_24k_base", seed, float64="check") for seed in (5, 6)]
+    clock.done("18c_token_grads_card_vs_cpu")
     train_launches, averaged = token_trainer(card, root, codebook)
+    clock.done("18d_token_trainer")
     gan = token_finetune(card, root, codebook, averaged)
+    clock.done("18e_token_finetune")
     cli_launches = token_clis(card, root, codebook, averaged)
     shutil.rmtree(root / "tokens", ignore_errors=True)
+    clock.done("18f_token_clis")
     return {"serving": serving, "fm_step": fm_step, "train": train_launches, "gan": gan,
             "cli": cli_launches}
 
@@ -2703,17 +2749,8 @@ def recipe(card: str, root: Path) -> dict:
         raise AssertionError(f"summary.json: {summary}")
     # the drive's second export: the last weights, where the windowed one
     # (average period 200 over 4 batches) is the FM generator it started from
-    last = save_averaged_model.main(["--exp-dir", str(exp / "gan_1step"), "--epoch", "1",
-                                     "--avg", "1", "--use-averaged-model", "false",
-                                     "--load-gan", "true", "--output",
-                                     str(root / "exp_last" / "gan_1step" / "generator.pt")])
-    last = torch.load(last, weights_only=True)
-    epoch1 = ckpt.load_checkpoint(exp / "gan_1step" / "epoch-1.pt")["model"]["generator"]
-    windowed = torch.load(exp / "gan_1step" / "generator.pt", weights_only=True)
-    if last.keys() != epoch1.keys() or not all(torch.equal(last[k], epoch1[k]) for k in epoch1):
-        raise AssertionError("the last-weights export differs from epoch-1's generator")
-    if windowed.keys() != last.keys() or all(torch.equal(windowed[k], last[k]) for k in last):
-        raise AssertionError("the windowed export equals the last weights")
+    check_gan_exports(exp / "gan_1step", exp / "gan_1step" / "generator.pt",
+                      root / "exp_last" / "gan_1step" / "generator.pt")
 
     launches = {}
     test_manifest = data / "libritts_recordings_test_clean.jsonl.gz"
@@ -2799,16 +2836,19 @@ def main() -> int:
     # IEEE float32 for the plain iSTFT's matmuls from the first comparison
     # on; get_model would set the same
     disable_tf32()
+    clock = PhaseClock()
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
 
+    clock.done("1_card")
     build = cuda_build.build("fused_istft")
     print(f"build: {build.path.name} in {build.seconds:.2f} s")
     for line in build.log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    clock.done("2_build")
 
     print(f"bound_ms = max(spectrogram and waveform bytes / {HBM_BYTES_PER_S:.3g} B/s, FFT-form FLOP / "
           f"{FP32_FLOP_PER_S:.3g} FLOP/s): H100 SXM data sheet, HBM3 and FP32 on CUDA cores; "
@@ -2823,6 +2863,7 @@ def main() -> int:
         print("istft shape " + json.dumps(shapes[-1]))
     for shape in EDGE_SHAPES:
         print("istft edge " + json.dumps(check_istft_shape(*shape, timed=False)))
+    clock.done("3_istft_kernel")
     adjoint_shapes = []
     for shape in MAIN_SHAPES + TRAIN_SHAPES:
         adjoint_shapes.append(check_adjoint_shape(*shape, timed=True))
@@ -2844,43 +2885,63 @@ def main() -> int:
         print("istft per-rank shape " + json.dumps(check_istft_shape(*shape, real_edges=True,
                                                                      timed=False)))
         print("adjoint per-rank shape " + json.dumps(check_adjoint_shape(*shape, timed=False)))
+    clock.done("4_adjoint_kernel_and_reference_batches")
 
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
     mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
     launches, wall_ms, launches44 = main_path(card, model, mel)
+    clock.done("5_main_path")
     card_vs_cpu()
+    clock.done("6_card_vs_cpu")
     audio = 0.1 * torch.randn(4, 24000, generator=torch.Generator().manual_seed(3))
     wav = model.reconstruct(audio, n_timesteps=1)
     if wav.shape != (4, 24064) or not torch.isfinite(wav).all():
         raise AssertionError(f"reconstruct gave {tuple(wav.shape)}")
     print(f"reconstruct: (4, 24000) waveform -> {tuple(wav.shape)}, finite")
+    clock.done("7_reconstruct")
     profile_one_call(card, model, mel, wall_ms, "f32")
+    clock.done("8_serving_profile")
     bf16_launches = bf16_serving(card, model, mel)
     del model
+    clock.done("11_bf16_serving")
     card44_launches = card_vs_cpu_44k(card)
+    clock.done("12_card_vs_cpu_44k")
     grads_card_vs_cpu(card, float64="report")
+    clock.done("9_grads_card_vs_cpu_and_float64")
     discriminators_card_vs_cpu(card)
     gan_grad_launches = gan_grads_card_vs_cpu(card)
+    clock.done("15abc_discriminators_and_gan_objectives_card_vs_cpu")
     root = Path(__file__).resolve().parent / "build" / "smoke_train"
     train_launches, exp, averaged, train_step_ms = trainer(card, root)
+    clock.done("10_trainer")
     bf16_train_launches = bf16_trainer(card, root)
+    clock.done("13_bf16_trainer")
     cli_launches = clis(card, root, exp, averaged)
     for path in [*exp.glob("*.pt"), *(root / "exp_bf16").glob("*.pt")]:
         if path != averaged:
             path.unlink()  # several GB of FM checkpoints
+    clock.done("14_clis")
     gan = gan_finetune(card, root, averaged)
+    clock.done("15d_gan_finetune")
     remat_launches = gan_step_profiles(card, averaged, gan["d_ms"], gan["g_ms"])
+    clock.done("15ef_gan_step_profiles_and_remat")
     gan_cli_launches = gan_clis(card, root, gan["exp"])
     shutil.rmtree(gan["exp"], ignore_errors=True)
+    clock.done("15g_gan_clis")
     dp = data_parallel_steps(card)
+    clock.done("16ab_data_parallel_steps")
     dp_train = data_parallel_trainer(card, root)
+    clock.done("16c_data_parallel_trainer")
     resume_phase(card, root, averaged)
-    tokens = token_family(card, root)
+    clock.done("17_resume")
+    tokens = token_family(card, root, clock)
     obs = observability(card, root, averaged, train_step_ms)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
+    clock.done("19_observability")
     recipe_launches = recipe(card, root / "recipe")
     shutil.rmtree(root, ignore_errors=True)
+    clock.done("20_recipe")
     dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
                 "gan_g_step_2_ranks_per_rank": 2,
                 f"pretrain_2_ranks_{dp_train['steps']}_steps_per_rank": 3}
@@ -2981,6 +3042,7 @@ def main() -> int:
         "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",
         "shapes": adjoint_shapes + reference_batches["adjoint"],
     }]}))
+    clock.done("21_kernels_line")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

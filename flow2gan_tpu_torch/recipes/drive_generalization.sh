@@ -44,6 +44,8 @@ OUT=${OUT:-$REPO/results/torch_generalization}
 SEED2=1  # the trainers' default --seed is 42
 GAN_ARGS="--gen-start-batch-idx 100 --valid-interval 100000 --save-every-n 1000000 --log-interval 100 --remat-rollout true"
 JAX_SUMMARY="$REPO/results/r4_generalization/summary.json"
+CORPUS=$R/LibriTTS
+TEST_MANIFEST=$R/manifests_fm/libritts_recordings_test_clean.jsonl.gz
 mkdir -p "$R" "$OUT"
 LOG=$R/drive.log
 TIMES=$R/stage_times.jsonl
@@ -51,62 +53,7 @@ TIMES=$R/stage_times.jsonl
 stage=${1:-1}
 stop=${2:-9}
 
-timed() {  # timed NAME CMD...: run CMD, append its wall seconds to $TIMES
-  local name=$1; shift
-  local t0; t0=$(date +%s.%N)
-  "$@"
-  "$py" -c 'import json, sys; print(json.dumps({"stage": sys.argv[1], "seconds": float(sys.argv[3]) - float(sys.argv[2])}))' \
-    "$name" "$t0" "$(date +%s.%N)" >> "$TIMES"
-}
-
-has_rows() {  # has_rows FILE: FILE exists with n_files > 0
-  "$py" -c '
-import json, os, sys
-p = sys.argv[1]
-sys.exit(0 if os.path.exists(p) and json.load(open(p)).get("summary", {}).get("n_files", 0) > 0 else 1)
-' "$1"
-}
-
-disk() {  # disk NAME DIR: append DIR's size in bytes to $R/disk.jsonl
-  "$py" -c '
-import json, os, sys
-n = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(sys.argv[2]) for f in fs)
-print(json.dumps({"what": sys.argv[1], "bytes": n}))
-' "$1" "$2" >> "$R/disk.jsonl"
-}
-
-collect() {  # collect EXP OUT: EXP's GAN rows and the FM rows, and EXP's step medians
-  local extra=(fm_1step:$R/exp/fm_1step fm_2step:$R/exp/fm_2step fm_4step:$R/exp/fm_4step)
-  mkdir -p "$2"
-  "$py" -m flow2gan_tpu_torch.bin.collect_results --exp-dir "$1" --output-dir "$2" \
-    --steps 1 2 4 --extra "${extra[@]}" --reference "$JAX_SUMMARY" 2>&1 | tee -a "$LOG"
-  "$py" - "$1" "$2" <<'PY'
-import json, statistics, sys
-from pathlib import Path
-exp, out = Path(sys.argv[1]), Path(sys.argv[2])
-
-def summary(records):
-    ms = [x["ms"] for x in records]
-    return {"steps": len(ms), "median_ms": statistics.median(ms),
-            "median_ms_after_first_10": statistics.median(ms[10:]) if len(ms) > 10 else None,
-            "total_s": sum(ms) / 1e3} if ms else None
-
-medians = {}
-for name in ["fm", "gan_1step", "gan_2step", "gan_4step"]:
-    f = exp / name / "steps.jsonl"
-    if f.exists():
-        recs = [json.loads(line) for line in f.read_text().splitlines() if line]
-        if name == "fm":
-            medians[name] = summary(recs)
-        else:
-            medians[name] = {side: summary([x for x in recs if x["side"] == side])
-                             for side in ("D", "G")}
-(out / "step_medians.json").write_text(json.dumps(medians, indent=2) + "\n")
-PY
-  for f in stage_times.jsonl disk.jsonl; do
-    if [ -f "$R/$f" ]; then cp "$R/$f" "$OUT/"; fi
-  done
-}
+source "$REPO/flow2gan_tpu_torch/recipes/drive_lib.sh"
 
 gan_rows() {  # gan_rows EXP TAG [trainer flags]: train, export and score the GAN at n = 1, 2, 4
   local exp=$1 tag=$2; shift 2
@@ -173,29 +120,16 @@ if [ "$stage" -le 3 ] && [ "$stop" -ge 3 ]; then
   # FM baselines on the held-out split at every published step count
   for n in 1 2 4; do
     if ! has_rows "$R/exp/fm_${n}step/metrics_pitch.json"; then
-      timed "fm_${n}step_infer" "$py" -m flow2gan_tpu_torch.bin.infer \
-        --model-name mel_24k_base \
-        --checkpoint "$R/exp/fm/averaged.pt" \
-        --recordings "$R/manifests_fm/libritts_recordings_test_clean.jsonl.gz" \
-        --root-path "$R/LibriTTS" \
-        --output-dir "$R/exp/fm_${n}step/test_clean_wavs" \
-        --n-timesteps $n 2>&1 | tee -a "$LOG"
-      timed "fm_${n}step_metrics" bash -c '
-        "$0" -m flow2gan_tpu_torch.bin.compute_pesq_visqol --ref-dir "$1/LibriTTS/test-clean" \
-          --gen-dir "$1/exp/fm_$2step/test_clean_wavs/test-clean" \
-          --output "$1/exp/fm_$2step/metrics_pesq.json"
-        "$0" -m flow2gan_tpu_torch.bin.compute_pitch_periodicity --ref-dir "$1/LibriTTS/test-clean" \
-          --gen-dir "$1/exp/fm_$2step/test_clean_wavs/test-clean" \
-          --output "$1/exp/fm_$2step/metrics_pitch.json"' "$py" "$R" "$n" 2>&1 | tee -a "$LOG"
+      score "fm_${n}step" "$R/exp/fm/averaged.pt" "$R/exp/fm_${n}step" "$n" --model-name mel_24k_base
     fi
   done
-  collect "$R/exp" "$OUT"
+  collect "$R/exp" "$OUT" 1 2 4
 fi
 
 if [ "$stage" -le 4 ] && [ "$stop" -ge 4 ]; then
   gan_rows "$R/exp" ""
-  collect "$R/exp" "$OUT"
-  collect "$R/exp_last" "$OUT/last"
+  collect "$R/exp" "$OUT" 1 2 4
+  collect "$R/exp_last" "$OUT/last" 1 2 4
 fi
 
 if [ "$stage" -le 5 ] && [ "$stop" -ge 5 ]; then
@@ -203,7 +137,7 @@ if [ "$stage" -le 5 ] && [ "$stop" -ge 5 ]; then
   mkdir -p "$R/exp_seed$SEED2"
   ln -sfn "$R/exp/fm" "$R/exp_seed$SEED2/fm"
   gan_rows "$R/exp_seed$SEED2" "seed${SEED2}_" --seed "$SEED2"
-  collect "$R/exp_seed$SEED2" "$OUT/seed$SEED2"
-  collect "$R/exp_seed${SEED2}_last" "$OUT/seed$SEED2/last"
+  collect "$R/exp_seed$SEED2" "$OUT/seed$SEED2" 1 2 4
+  collect "$R/exp_seed${SEED2}_last" "$OUT/seed$SEED2/last" 1 2 4
 fi
 echo "DRIVE_GENERALIZATION_DONE $(date -u)" | tee -a "$LOG"

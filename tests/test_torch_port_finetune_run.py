@@ -2,14 +2,17 @@
 
 `flow2gan_tpu.bin.finetune.run` and `flow2gan_tpu_torch.bin.finetune.run`
 take the same flags, the same generator `.ckpt`, the same discriminator
-init, the same batches and the same draws, and train mel_24k_tiny for one
+init, the same batches and the same draws, and train mel_24k_tiny, then
+token_24k_tiny (each check is a case of each), for one
 epoch of 26 batches at 2 Euler steps with `--remat-rollout true`: a 6-batch
 D-only warm-up, then strict D/G alternation (16 D and 10 G updates), both
 Eden2 schedules through the end of their 8-update warm-up, ScaledAdam's
 scale updates, the running average every 4 batches (batch 26, the last, is
 not in it) and both exports of each package's `save_averaged_model`:
 the windowed one over (epoch-0, epoch-1] and `--use-averaged-model false`,
-the last weights.
+the last weights. The token run's codebook (vocab 64) is fit on the corpus
+by the port's `bin/train_tokenizer`; both packages load the one `.npz` and
+tokenize each batch themselves.
 
 Setup. The discriminators are `Discriminators(periods=(2, 3),
 fft_sizes=(256, 128))` at full channel width on both sides, the JAX init at
@@ -27,15 +30,17 @@ both sides:
   to 1e-6 (float32 against float64 arithmetic of the same schedule);
 - each step's loss: 3e-5 of JAX's. The first steps differ by ~1e-7; the
   differences grow as both sides compound their rounding, to at most
-  3.4e-6 (G steps from batch 13 on);
+  3.4e-6 for mel, 8.6e-6 for tokens (G steps from batch 13 on);
 - a parameter tree (the final generator, the running average, the two
   exports): the whole tree's difference to 5e-4 of its change over the run
-  (measured 4.1e-5 to 5.2e-5, growing about linearly with the steps), and
-  each tensor's to 5e-3 of its change (measured at most 5.0e-4) beyond a
+  (measured 4.1e-5 to 5.2e-5 for mel, 8.3e-5 to 1.1e-4 for tokens, growing
+  about linearly with the steps), and each tensor's to 5e-3 of its change
+  (measured at most 5.0e-4) beyond a
   floor of 4 float32 ulps of the tensor (a BiasNorm `log_scale` that moved
   6e-6 differs by one ulp);
 - the final discriminators: the whole tree to 1e-2 of its change, each
-  tensor to 3e-2. Measured: 2.2e-3 and 7.4e-3. Every score lies in the
+  tensor to 3e-2. Measured: 2.2e-3 and 7.4e-3 (tokens 3.0e-3 and 9.8e-3).
+  Every score lies in the
   hinge's linear part, so the D gradient of the MRD's band convs is a
   difference of two near-equal means and its float32 rounding shows at
   ~1e-3 of a tensor's gradient (`test_torch_port_gan_steps.py`); from the
@@ -44,7 +49,8 @@ both sides:
   moves a step by its whole size: ScaledAdam's scale-update period 4 -> 5,
   its scalar lr scale 0.1 -> 0.11 or the running average taken a batch
   late, each alone in the port, missed the generator's limits by 20-650x,
-  and the first two the discriminators' by ~3x;
+  and the first two the discriminators' by ~3x; a tokenizer that drops
+  the centroids' norms from its scores missed the token case's by ~300x;
 - each package's exports against its own checkpoints: exact.
 """
 
@@ -65,7 +71,7 @@ from flow2gan_tpu.models import discriminators as jd
 from flow2gan_tpu.parallel import mesh as jmesh
 from flow2gan_tpu.training import checkpoint as jckpt
 
-from flow2gan_tpu_torch.bin import finetune, save_averaged_model
+from flow2gan_tpu_torch.bin import finetune, save_averaged_model, train_tokenizer
 from flow2gan_tpu_torch.compat.from_jax import jax_params_to_state_dict, load_jax_params
 from flow2gan_tpu_torch.models import RolloutDraws
 from flow2gan_tpu_torch.models import discriminators as pd
@@ -73,6 +79,8 @@ from flow2gan_tpu_torch.models import generator as pgen
 from flow2gan_tpu_torch.training import checkpoint as ckpt
 
 from .test_torch_port_gan_steps import _jax_x0, _patch_gate
+from .test_torch_port_tokens import _jax_x0 as _jax_token_x0
+from .test_torch_port_tokens import _pair as _token_pair
 from .test_torch_port_train import _pair
 from .test_torch_port_trainer import _corpus
 
@@ -80,6 +88,7 @@ SEED, N_STEPS, N_RECORDINGS, BATCH = 3, 2, 52, 2
 N_BATCHES = N_RECORDINGS // BATCH
 GEN_START, AVERAGE_PERIOD = 6, 4
 PERIODS, FFT_SIZES = (2, 3), (256, 128)
+MODELS = ["mel_24k_tiny", "token_24k_tiny"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -106,8 +115,9 @@ class _JitInit:
         return getattr(self.module, name)
 
 
-def _flags(exp_dir, manifest, init):
-    return ["--exp-dir", str(exp_dir), "--model-name", "mel_24k_tiny",
+def _flags(model, exp_dir, manifest, init, codebook):
+    tokens = ["--tokenizer", str(codebook)] if codebook else []
+    return ["--exp-dir", str(exp_dir), "--model-name", model, *tokens,
             "--generator-model-path", str(init), "--train-recordings", str(manifest),
             "--batch-size", str(BATCH), "--duration", "0.25", "--num-workers", "1",
             "--seed", str(SEED), "--n-timesteps", str(N_STEPS), "--num-epochs", "1",
@@ -138,12 +148,23 @@ def _recording(steps, record):
     return wrapped
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """One run of each fine-tuner and the four exports."""
+@pytest.fixture(scope="module", params=MODELS)
+def runs(request, tmp_path_factory):
+    """One run of each fine-tuner and the four exports, for the mel and the
+    token family; the token run's codebook is fit on the corpus by the
+    port's bin/train_tokenizer, and both packages load it."""
+    model = request.param
     root = tmp_path_factory.mktemp("ft_run")
     manifest = _corpus(root, n=N_RECORDINGS)
-    jm, params_g, _, cfg = _pair("tiny")
+    codebook, generator_class = None, pgen.MelAudioGenerator
+    if model.startswith("token"):
+        codebook = train_tokenizer.main([
+            "--model-name", model, "--recordings", str(manifest),
+            "--output", str(root / "codebook.npz"), "--iters", "8", "--device", "cpu"])
+        generator_class = pgen.TokenAudioGenerator
+        jm, params_g, _, cfg = _token_pair("tiny")
+    else:
+        jm, params_g, _, cfg = _pair("tiny")
     init = root / "generator.ckpt"
     jckpt.save_checkpoint(init, params=params_g)
     j_disc = jd.Discriminators(periods=PERIODS, fft_sizes=FFT_SIZES)
@@ -162,7 +183,8 @@ def runs(tmp_path_factory):
         mp.setattr(j_finetune, "init_gan_train_state",
                    lambda *a: jmesh.replicate(init_state(*a), mesh))
         mp.setattr(j_finetune, "make_gan_steps", _recording(j_finetune.make_gan_steps, j_record))
-        j_finetune.run(j_finetune.get_parser().parse_args(_flags(root / "jax", manifest, init)))
+        j_finetune.run(j_finetune.get_parser().parse_args(
+            _flags(model, root / "jax", manifest, init, codebook)))
 
         # ---- the port, from the same discriminator init and the JAX draws
         mp.setattr(finetune, "Discriminators", lambda: pd.Discriminators(PERIODS, FFT_SIZES))
@@ -173,23 +195,26 @@ def runs(tmp_path_factory):
             batch_idx.append(idx)
             return step_generator(seed, idx, device)
 
-        draw = pgen.MelAudioGenerator.draw_rollout
+        draw = generator_class.draw_rollout
 
         def jax_draws(self, batch, n_frames, n_timesteps, generator, train=True, **kw):
             ours = draw(self, batch, n_frames, n_timesteps, generator, train, **kw)
-            key = jax.random.fold_in(jax.random.PRNGKey(SEED + 1), batch_idx[-1])
-            x0 = _jax_x0(jm, params_g, jnp.zeros((batch, cfg["n_mels"], n_frames)),
-                         jax.random.fold_in(key, 0))
+            key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(SEED + 1),
+                                                        batch_idx[-1]), 0)
+            if codebook:
+                x0 = _jax_token_x0(jm, params_g, jnp.zeros((batch, n_frames), jnp.int32), key)
+            else:
+                x0 = _jax_x0(jm, params_g, jnp.zeros((batch, cfg["n_mels"], n_frames)), key)
             assert x0.shape == tuple(ours.x0.shape)
             drawn.append(batch_idx[-1])
             gates = None if ours.gates is None else torch.ones_like(ours.gates)
             return RolloutDraws(torch.from_numpy(x0), gates)
 
         mp.setattr(finetune, "step_generator", recording_generator)
-        mp.setattr(pgen.MelAudioGenerator, "draw_rollout", jax_draws)
+        mp.setattr(generator_class, "draw_rollout", jax_draws)
         mp.setattr(finetune, "make_gan_steps", _recording(finetune.make_gan_steps, p_record))
         history = finetune.run(finetune.get_parser().parse_args(
-            [*_flags(root / "port", manifest, init), "--device", "cpu"]))
+            [*_flags(model, root / "port", manifest, init, codebook), "--device", "cpu"]))
 
         exports = {}
         for windowed in (True, False):

@@ -6,7 +6,8 @@ pitch/periodicity/V-UV and Fréchet functions and `collect_results` against
 the JAX scripts'; the metric CLIs failing closed; the quick-start CLIs; and
 `recipes/preflight_pipeline.sh --device cpu` end to end at mel_24k_tiny,
 every artifact checked. The recipes' flags are held against the JAX
-repo's `run_libritts.sh` and `results/r4_generalization/drive_gen.sh`, and
+repo's `run_libritts.sh`, `results/r4_generalization/drive_gen.sh` and
+`results/r5_token_gen/drive_token_gen.sh`, and
 the trainers' step records (`<exp>/steps.jsonl`) against a fresh and a
 resumed run.
 """
@@ -421,52 +422,119 @@ def test_run_libritts_takes_the_jax_recipes_options():
     assert "torch.distributed.run --standalone --nproc-per-node" in text
 
 
-def test_drive_generalization_keeps_the_jax_drives_budgets():
-    """The replay's corpus, FM and GAN flags are drive_gen.sh's."""
-    jax_drive = (REPO / "results" / "r4_generalization" / "drive_gen.sh").read_text()
-    ours = (RECIPES / "drive_generalization.sh").read_text()
-    flags = [
+def _words(script: Path) -> str:
+    """The script's text with its line continuations joined, its quotes
+    dropped and its runs of blanks made one space."""
+    text = re.sub(r"\\\n\s*", " ", script.read_text())
+    return re.sub(r"[ \t]+", " ", text.replace('"', ""))
+
+
+# (the port's drive, the JAX drive, the flags that both pass, the port's stage-5 lines)
+_DRIVES = {
+    "mel": ("drive_generalization.sh", "r4_generalization/drive_gen.sh", [
         "--n-train 300 --n-test 20 --n-dev 4 --duration 3.0 --train-repeat 80",
         "--n-train 300 --n-test 20 --n-dev 4 --duration 3.0 --train-repeat 40",
         "--model-name mel_24k_base --train-splits train_clean_100",
         "--fm-epochs 4 --fm-batch 16 --fm-avg 2",
-        '"--valid-interval 100000 --save-every-n 1000000 --log-interval 200 --keep-last-k 3"',
+        "--valid-interval 100000 --save-every-n 1000000 --log-interval 200 --keep-last-k 3",
         "--gan-epochs 1 --gan-batch 16 --gan-avg 1",
-        '"--gen-start-batch-idx 100 --valid-interval 100000 --save-every-n 1000000 '
-        '--log-interval 100 --remat-rollout true"',
-    ]
+        "--gen-start-batch-idx 100 --valid-interval 100000 --save-every-n 1000000 "
+        "--log-interval 100 --remat-rollout true",
+        "for n in 1 2 4",
+    ], ['gan_rows "$R/exp_seed$SEED2" "seed${SEED2}_" --seed "$SEED2"',
+        'ln -sfn "$R/exp/fm" "$R/exp_seed$SEED2/fm"']),
+    "token": ("drive_token_generalization.sh", "r5_token_gen/drive_token_gen.sh", [
+        "--n-train 300 --n-test 20 --n-dev 4 --duration 3.0 --train-repeat 80",
+        "--n-train 300 --n-test 20 --n-dev 4 --duration 3.0 --train-repeat 40",
+        "M=token_24k_base",
+        # the codebook: bin/train_tokenizer.py's defaults on the GAN manifest's train split
+        "--model-name $M --recordings $G/manifests_gan/libritts_recordings_train_clean_100.jsonl.gz "
+        "--output $R/tokenizer_1024.npz",
+        "--exp-dir $R/exp/fm --model-name $M --tokenizer",
+        "--num-epochs 4 --batch-size 16 --base-lr 0.035 --lr-batches 7500 --duration 1.5 "
+        "--valid-interval 100000 --save-every-n 1000000 --log-interval 200 --keep-last-k 3",
+        "--exp-dir $R/exp/fm --epoch 4 --avg 2 --output $R/exp/fm/averaged.",
+        "--n-timesteps $n --num-epochs 1 --batch-size 16",
+        "--valid-recordings $G/manifests_gan/libritts_recordings_dev_clean.jsonl.gz",
+        "--gen-start-batch-idx 100 --valid-interval 100000 --save-every-n 1000000 "
+        "--log-interval 100 --remat-rollout true",
+        "--epoch 1 --avg 1 --load-gan true --output",
+        "for n in 1 2 4",
+    ], ['gan_row "$R/exp_seed$SEED2" "seed${SEED2}_" --seed "$SEED2"',
+        'finetune "$exp/gan_${n}step" $n "$@"']),
+}
+
+
+@pytest.mark.parametrize("drive", sorted(_DRIVES))
+def test_drive_generalization_keeps_the_jax_drives_budgets(drive):
+    """The replay's corpus, codebook, FM and GAN flags are the JAX drive's;
+    stage 5 repeats the GAN rows at another seed, from the same FM
+    generator."""
+    ours_name, jax_name, flags, stage5 = _DRIVES[drive]
+    jax_drive = _words(REPO / "results" / jax_name)
+    ours = _words(RECIPES / ours_name)
     for flag in flags:
         assert flag in jax_drive and flag in ours, flag
-    assert "for n in 1 2 4" in ours and "git " not in ours
-    # stage 5 repeats the GAN rows at another seed, from the same FM generator
-    assert 'gan_rows "$R/exp_seed$SEED2" "seed${SEED2}_" --seed "$SEED2"' in ours
-    assert 'ln -sfn "$R/exp/fm" "$R/exp_seed$SEED2/fm"' in ours
+    assert "git " not in ours and "drive_lib.sh" in ours
+    text = (RECIPES / ours_name).read_text()
+    for line in stage5:
+        assert line in text, line
+    if drive == "token":  # the GAN stage at one step count, from the averaged FM generator
+        assert "n=1" in jax_drive and "n=1" in ours
+        assert "--generator-model-path $R/exp/fm/averaged." in jax_drive
+        assert "--generator-model-path $R/exp/fm/averaged.pt" in ours
 
 
-_STAND_IN_RECIPE = r"""#!/usr/bin/env bash
-# run_libritts.sh's stage 4 (a GAN run's two epoch checkpoints, then the
-# recipe's own windowed export) and stages 5-6 (metric files), in seconds
-set -euo pipefail
-while [ $# -gt 0 ]; do
-  case "$1" in --stage) st=$2;; --exp-dir) exp=$2;; --n-timesteps-list) n=$2;; esac; shift
-done
-run=$exp/gan_${n}step
-if [ "$st" = 4 ]; then
-  mkdir -p "$run"; cp "$CKPTS"/epoch-*.pt "$run/"
-  "$PYTHON" -m flow2gan_tpu_torch.bin.save_averaged_model --exp-dir "$run" --epoch 1 --avg 1 \
-    --load-gan true --output "$run/generator.pt"
-else
-  for m in pesq pitch; do cp "$METRICS/gan_${n}step_metrics_$m.json" "$run/metrics_$m.json"; done
-fi
+_STAND_IN_PYTHON = r"""#!{python}
+# The interpreter the drives call, with the heavy CLIs stood in for:
+# bin.finetune copies a GAN run's two epoch checkpoints into --exp-dir;
+# bin.infer writes nothing; the metric CLIs copy a row's metric files; FSD
+# fails (it is optional). Every call is logged; the rest runs for real.
+import json, os, shutil, sys
+from pathlib import Path
+
+args = sys.argv[1:]
+with open(os.environ["CALLS"], "a") as f:
+    f.write(json.dumps(args) + "\n")
+module = args[1] if args[:1] == ["-m"] else None
+if module == "flow2gan_tpu_torch.bin.finetune":
+    run = Path(args[args.index("--exp-dir") + 1])
+    run.mkdir(parents=True, exist_ok=True)
+    for f in Path(os.environ["CKPTS"]).glob("epoch-*.pt"):
+        shutil.copy(f, run)
+elif module == "flow2gan_tpu_torch.bin.infer":
+    pass
+elif module in ("flow2gan_tpu_torch.bin.compute_pesq_visqol",
+                "flow2gan_tpu_torch.bin.compute_pitch_periodicity"):
+    out = Path(args[args.index("--output") + 1])
+    kind = "pesq" if module.endswith("visqol") else "pitch"
+    shutil.copy(Path(os.environ["METRICS"]) / f"{{out.parent.name}}_metrics_{{kind}}.json", out)
+elif module == "flow2gan_tpu_torch.bin.compute_fsd":
+    sys.exit(1)
+else:
+    os.execv(sys.executable, [sys.executable, *args])
 """
 
+# (GAN step counts, the JAX rows, the rows' metric files, the stage names of one n, its infer flags)
+_STAGE_4 = {
+    "mel": ((1, 2, 4), "r4_generalization/summary.json", "torch_generalization",
+            ("train_and_export", "export_last", "infer_and_metrics", "last_infer_and_metrics"),
+            ["--model-name", "mel_24k_base"]),
+    "token": ((1,), "r5_token_gen/summary.json", "r5_token_gen",
+              ("train_and_export", "export_last", "infer", "metrics", "last_infer",
+               "last_metrics"),
+              ["--model-name", "token_24k_base", "--tokenizer"]),
+}
 
-def test_drive_generalization_scores_the_windowed_and_the_last_weights(tmp_path):
-    """The replay's GAN stage (stage 4) with run_libritts.sh stood in for:
-    each run is exported twice before its checkpoints are deleted, the
-    windowed running average to exp/ and the last weights of epoch-1 to
-    exp_last/, both are scored, and the last-weights rows are collected
-    into $OUT/last/ against the JAX rows."""
+
+@pytest.mark.parametrize("drive", sorted(_STAGE_4))
+def test_drive_generalization_scores_the_windowed_and_the_last_weights(tmp_path, drive):
+    """The replay's GAN stage (stage 4) with the trainer, inference and the
+    metric CLIs stood in for: each run is exported twice before its
+    checkpoints are deleted, the windowed running average to exp/ and the
+    last weights of epoch-1 to exp_last/, both are scored, and the
+    last-weights rows are collected into $OUT/last/ against the JAX rows."""
+    steps, jax_rows, metrics, stages, infer_flags = _STAGE_4[drive]
     ckpts = tmp_path / "ckpts"
     g0 = {"w": torch.zeros(3), "b": torch.ones(2)}
     g1 = {"w": torch.tensor([1.0, 2.0, 3.0]), "b": torch.tensor([0.5, 0.25])}
@@ -475,27 +543,22 @@ def test_drive_generalization_scores_the_windowed_and_the_last_weights(tmp_path)
         ckpt.save_checkpoint(ckpts / f"epoch-{epoch}.pt",
                              model={"generator": gen, "discriminator": {"d": torch.ones(1)}},
                              model_avg=running, train_params={"batch_idx_train": 750 * epoch})
-    drive = tmp_path / "drive.sh"
-    stand_in = tmp_path / "recipe.sh"
-    stand_in.write_text(_STAND_IN_RECIPE)
-    text = (RECIPES / "drive_generalization.sh").read_text()
-    line = 'recipe="$REPO/flow2gan_tpu_torch/recipes/run_libritts.sh"'
-    assert text.count(line) == 1
-    drive.write_text(text.replace(line, f'recipe="{stand_in}"').replace(
-        'REPO=$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd)', f'REPO="{REPO}"'))
-    work, out = tmp_path / "R", tmp_path / "OUT"
-    fm_rows = REPO / "results" / "torch_generalization"
+    python = tmp_path / "python"
+    python.write_text(_STAND_IN_PYTHON.format(python=sys.executable))
+    python.chmod(0o755)
+    work, out, calls = tmp_path / "R", tmp_path / "OUT", tmp_path / "calls.jsonl"
+    rows = REPO / "results" / metrics
     for n in (1, 2, 4):
         for m in ("pesq", "pitch"):
             dst = work / "exp" / f"fm_{n}step" / f"metrics_{m}.json"
             dst.parent.mkdir(parents=True, exist_ok=True)
-            dst.write_text((fm_rows / f"fm_{n}step_metrics_{m}.json").read_text())
-    env = {**os.environ, "R": str(work), "OUT": str(out), "PYTHON": sys.executable,
-           "CKPTS": str(ckpts), "METRICS": str(fm_rows)}
-    proc = subprocess.run(["bash", str(drive), "4", "4"], env=env, capture_output=True, text=True,
-                          timeout=300)
+            dst.write_text((rows / f"fm_{n}step_metrics_{m}.json").read_text())
+    env = {**os.environ, "R": str(work), "G": str(tmp_path / "G"), "OUT": str(out),
+           "PYTHON": str(python), "CKPTS": str(ckpts), "METRICS": str(rows), "CALLS": str(calls)}
+    proc = subprocess.run(["bash", str(RECIPES / _DRIVES[drive][0]), "4", "4"], env=env,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    for n in (1, 2, 4):
+    for n in steps:
         windowed = torch.load(work / "exp" / f"gan_{n}step" / "generator.pt", weights_only=True)
         last = torch.load(work / "exp_last" / f"gan_{n}step" / "generator.pt", weights_only=True)
         assert all(torch.equal(windowed[k], avg[k].float()) for k in avg)
@@ -503,14 +566,16 @@ def test_drive_generalization_scores_the_windowed_and_the_last_weights(tmp_path)
         assert not list((work / "exp" / f"gan_{n}step").glob("epoch-*.pt"))
         for e in ("exp", "exp_last"):
             assert (work / e / f"gan_{n}step" / "metrics_pitch.json").is_file()
+    calls = [json.loads(x) for x in calls.read_text().splitlines()]
+    infers = [c for c in calls if c[:2] == ["-m", "flow2gan_tpu_torch.bin.infer"]]
+    assert len(infers) == 2 * len(steps)
+    assert all(f in c for c in infers for f in infer_flags)
     for summary in (out / "summary.json", out / "last" / "summary.json"):
-        rows = json.loads(summary.read_text())
-        assert {"gan_1step", "gan_2step", "gan_4step", "fm_1step"} <= set(rows)
-    assert "r4_generalization/summary.json" in (out / "last" / "summary.md").read_text()
-    stages = [json.loads(x)["stage"] for x in (out / "stage_times.jsonl").read_text().splitlines()]
-    assert stages == [f"gan_{n}step_{s}" for n in (1, 2, 4) for s in
-                      ("train_and_export", "export_last", "infer_and_metrics",
-                       "last_infer_and_metrics")]
+        assert set(json.loads(summary.read_text())) == (
+            {f"gan_{n}step" for n in steps} | {"fm_1step", "fm_2step", "fm_4step"})
+    assert jax_rows in (out / "last" / "summary.md").read_text()
+    recorded = [json.loads(x)["stage"] for x in (out / "stage_times.jsonl").read_text().splitlines()]
+    assert recorded == [f"gan_{n}step_{s}" for n in steps for s in stages]
 
 
 def test_step_records_start_afresh_and_append_on_resume(tmp_path):
