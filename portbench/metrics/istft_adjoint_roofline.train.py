@@ -1,0 +1,9 @@
+"""The iSTFT adjoint kernel's share of its own roofline over the traced
+training steps' launches, weighted by time, averaged over the ranks."""
+
+from portbench.metrics._common import mean, on_device, ranks, roofline
+
+
+def read(obs):
+    return mean(roofline(o["adjoint_s"], o["adjoint_bound_s"]) for o in ranks(obs)
+                if on_device(o))
