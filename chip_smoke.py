@@ -183,6 +183,7 @@ its wall time (phase 18 one such line for each of its parts):
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -202,7 +203,7 @@ import torch
 import torch.distributed
 import torch.multiprocessing
 
-from flow2gan_tpu_torch import get_model, utils_tb
+from flow2gan_tpu_torch import get_model, tracing, utils_tb
 from flow2gan_tpu_torch.api import VocoderModel, init_weights
 from flow2gan_tpu_torch.bin import (
     collect_results,
@@ -352,6 +353,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def n_istft() -> int:
+    """The fused iSTFT kernel's launches since the last `tracing.drain()`."""
+    return tracing.counter("istft.launches")
+
+
+def n_adjoint() -> int:
+    """The adjoint kernel's launches since the last `tracing.drain()`."""
+    return tracing.counter("istft.adjoint_launches")
+
+
+@contextlib.contextmanager
+def untraced():
+    """The program's tracing off for a timing, then as it was."""
+    was = tracing.enabled()
+    tracing.disable()
+    try:
+        yield
+    finally:
+        if was:
+            tracing.enable()
+
+
+@untraced()
 def device_ms(fn, samples: int = TIMED_SAMPLES) -> list:
     """Device times of fn() in ms, one per sample. Each sample queues fn
     behind a GPU spin so that the host's launch overhead stays out of the
@@ -557,6 +581,7 @@ def check_adjoint_float64(n_fft, hop, batch, t_f, length) -> dict:
     return row
 
 
+@untraced()
 def time_calls(fn, calls: int = TIMED_CALLS):
     """Host wall time per call in ms, each call ended by a device sync."""
     for _ in range(3):
@@ -575,19 +600,19 @@ def main_path(card: str, model, mel):
     """Serve mel_24k_base at 1/2/4 steps; returns the kernel's launches over
     one call at each step count, the median ms of a 1-step call, and the
     launches of one 1-step mel_44k_128band_512x_base call."""
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     for n in (1, 2, 4):
-        before = fused.launches
+        before = n_istft()
         wav = model.infer(mel, n_timesteps=n)
         torch.cuda.synchronize()
         if wav.shape != (16, 24064) or not torch.isfinite(wav).all():
             raise AssertionError(f"{n}-step output {tuple(wav.shape)} not finite (16, 24064)")
-        if fused.launches - before != 3 * n:
-            raise AssertionError(f"{n}-step call launched the kernel {fused.launches - before} "
+        if n_istft() - before != 3 * n:
+            raise AssertionError(f"{n}-step call launched the kernel {n_istft() - before} "
                                  f"times, expected {3 * n}")
-    launches = fused.launches
-    if fused.adjoint_launches:
-        raise AssertionError(f"serving launched the adjoint {fused.adjoint_launches} times")
+    launches = n_istft()
+    if n_adjoint():
+        raise AssertionError(f"serving launched the adjoint {n_adjoint()} times")
     print(f"main path: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
 
     audio_s = 16 * 24064 / 24000
@@ -605,10 +630,10 @@ def main_path(card: str, model, mel):
 
     model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
     mel44 = torch.from_numpy(np.random.RandomState(1).randn(16, 128, 87).astype(np.float32))
-    fused.launches = 0
+    tracing.drain()
     wav = model44.infer(mel44, n_timesteps=1)
     torch.cuda.synchronize()
-    launches44 = fused.launches
+    launches44 = n_istft()
     if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or launches44 != 3:
         raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, {launches44} launches")
     ms = time_calls(lambda: model44.infer(mel44, n_timesteps=1), calls=5)
@@ -626,10 +651,10 @@ def card_vs_cpu():
     noise = (0.1 * rng.randn(2, 24064)).astype(np.float32)
     for n in (1, 2, 4):
         with torch.inference_mode():
-            before = fused.launches
+            before = n_istft()
             a = gpu.infer_from_noise(torch.from_numpy(noise).cuda(), torch.from_numpy(cond).cuda(),
                                      n_timesteps=n).cpu()
-            if fused.launches - before != 3 * n:
+            if n_istft() - before != 3 * n:
                 raise AssertionError("card run did not go through the kernel")
             b = cpu.infer_from_noise(torch.from_numpy(noise), torch.from_numpy(cond), n_timesteps=n)
         abs_err = (a - b).abs().max().item()
@@ -677,6 +702,16 @@ def _dev_us(e):  # the attribute's name differs across torch versions
     return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
 
+def device_kernels(prof) -> list:
+    """(device us, name, count) of each device operation's name in a
+    profile, without the device-side copies of host annotations (the
+    program's spans, with its tracing on)."""
+    marks = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.is_user_annotation() and str(e.device_type()).endswith("CUDA")}
+    return [(_dev_us(e), e.key, e.count) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0 and e.key not in marks]
+
+
 NCCL_FAMILY = "nccl collectives (with their waits)"
 
 
@@ -712,8 +747,7 @@ def profile_one_call(card: str, model, mel, wall_ms: float, label: str) -> dict:
         model.infer(mel, n_timesteps=1)
         torch.cuda.synchronize()
 
-    kernels = [(_dev_us(e), e.key, e.count) for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
+    kernels = device_kernels(prof)
     total_ms = sum(k[0] for k in kernels) / 1e3
     families = {}
     for us, name, _ in kernels:
@@ -799,9 +833,9 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
         loss.backward()
         return loss.item(), {k: p.grad.double().cpu() for k, p in model.named_parameters()}
 
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     loss_gpu, g_gpu = run(gpu, "cuda")
-    launches = (fused.launches, fused.adjoint_launches)
+    launches = (n_istft(), n_adjoint())
     if launches != (3, 3):
         raise AssertionError(f"a training step launched (forward, adjoint) {launches}, expected (3, 3)")
     loss_cpu, g_cpu = run(cpu, "cpu")
@@ -892,11 +926,10 @@ def device_families(fn, trace: Path = None, family=None, kernels: list = None):
         fn()
         torch.cuda.synchronize()
     families = {}
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0:
-            families[family(e.key)] = families.get(family(e.key), 0.0) + _dev_us(e) / 1e3
-            if kernels is not None:
-                kernels.append(e.count)
+    for us, name, count in device_kernels(prof):
+        families[family(name)] = families.get(family(name), 0.0) + us / 1e3
+        if kernels is not None:
+            kernels.append(count)
     return families, (gemm_ms_by_dtype(prof, trace) if trace is not None else None)
 
 
@@ -968,12 +1001,12 @@ def trainer(card: str, root: Path):
     args = pretrain.get_parser().parse_args(TRAIN_ARGS + [
         "--exp-dir", str(exp), "--train-recordings", str(train), "--valid-recordings", str(valid)])
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history = pretrain.run(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = len(history)
     valid_batches = 2  # --valid-interval 16 over 32 steps, one batch of 16 each
@@ -1005,12 +1038,12 @@ def trainer(card: str, root: Path):
     out = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "2"])
     served = get_model("mel_24k_base", checkpoint=out, device="cuda")
     mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
-    before = fused.launches
+    before = n_istft()
     wav = served.infer(mel, n_timesteps=1)
     torch.cuda.synchronize()
-    if wav.shape != (16, 24064) or not torch.isfinite(wav).all() or fused.launches - before != 3:
+    if wav.shape != (16, 24064) or not torch.isfinite(wav).all() or n_istft() - before != 3:
         raise AssertionError(f"the averaged model served {tuple(wav.shape)} with "
-                             f"{fused.launches - before} launches")
+                             f"{n_istft() - before} launches")
     print(f"trainer checkpoints: epoch-2 and checkpoint-{steps} reload; averaged model "
           f"{out.name} serves a 1-step call of {tuple(wav.shape)}, finite, 3 launches")
     profile_train_step(card, med)
@@ -1043,9 +1076,9 @@ def bf16_card_vs_cpu(card: str) -> None:
     cond = torch.from_numpy(rng.randn(2, 100, 94).astype(np.float32))
     x0 = (0.1 * rng.randn(2, 24064)).astype(np.float32)
     with torch.inference_mode():
-        fused.launches = 0
+        tracing.drain()
         card16 = gpu.infer_from_noise(torch.from_numpy(x0).cuda(), cond.cuda()).cpu()
-        if fused.launches != 3:
+        if n_istft() != 3:
             raise AssertionError("the card's bf16 run did not go through the kernel")
         cpu16 = cpu.infer_from_noise(torch.from_numpy(x0), cond)
         cpu32_out = cpu32.infer_from_noise(torch.from_numpy(x0), cond)
@@ -1068,20 +1101,20 @@ def bf16_serving(card: str, model32, mel) -> int:
     one call's device time by family. Returns the launches over the three
     calls."""
     model16 = bf16_vocoder("cuda")
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     outs = {}
     for n in (1, 2, 4):
-        before = fused.launches
+        before = n_istft()
         outs[n] = model16.infer(mel, n_timesteps=n)
         torch.cuda.synchronize()
         if outs[n].shape != (16, 24064) or not torch.isfinite(outs[n]).all():
             raise AssertionError(f"bf16 {n}-step output {tuple(outs[n].shape)} not finite (16, 24064)")
-        if fused.launches - before != 3 * n:
-            raise AssertionError(f"bf16 {n}-step call launched the kernel {fused.launches - before} "
+        if n_istft() - before != 3 * n:
+            raise AssertionError(f"bf16 {n}-step call launched the kernel {n_istft() - before} "
                                  f"times, expected {3 * n}")
-    launches = fused.launches
-    if fused.adjoint_launches:
-        raise AssertionError(f"bf16 serving launched the adjoint {fused.adjoint_launches} times")
+    launches = n_istft()
+    if n_adjoint():
+        raise AssertionError(f"bf16 serving launched the adjoint {n_adjoint()} times")
     print(f"bf16 serving: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
     for n in (1, 2, 4):
         with torch.inference_mode():
@@ -1122,9 +1155,9 @@ def card_vs_cpu_44k(card: str) -> int:
     cond = torch.from_numpy(rng.randn(2, 128, 87).astype(np.float32))
     x0 = torch.from_numpy((0.1 * rng.randn(2, 87 * 512)).astype(np.float32))
     with torch.inference_mode():
-        fused.launches = 0
+        tracing.drain()
         a = gpu.infer_from_noise(x0.cuda(), cond.cuda()).cpu()
-        launches = fused.launches
+        launches = n_istft()
         b = cpu.infer_from_noise(x0, cond)
     abs_err = (a - b).abs().max().item()
     rel = abs_err / b.abs().max().item()
@@ -1150,12 +1183,12 @@ def bf16_trainer(card: str, root: Path) -> dict:
         "--tensorboard", "false", "--train-recordings", str(half),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history = pretrain.run(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     steps = len(history)
     if steps != 8 or launches != {"forward": 3 * (8 + 2), "adjoint": 3 * 8}:
         raise AssertionError(f"bf16 trainer ran {steps} steps with launches {launches}")
@@ -1185,12 +1218,12 @@ def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
     (cli / "wavs").mkdir(parents=True, exist_ok=True)
     write_recording_manifest(recs, cli / "recordings.jsonl.gz")
     launches = {}
-    fused.launches = 0
+    tracing.drain()
     written = infer.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "1",
                           "--recordings", str(cli / "recordings.jsonl.gz"),
                           "--root-path", str(root / "valid"), "--output-dir", str(cli / "infer"),
                           "--batch-size", "4", "--num-workers", "2", "--device", "cuda"])
-    launches["infer"] = fused.launches
+    launches["infer"] = n_istft()
     for rec, path in zip(recs, written):
         out, sr = read_wav(path)
         if sr != 24000 or out.shape != (1, rec.num_samples) or not np.isfinite(out).all():
@@ -1201,10 +1234,10 @@ def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
         shutil.copy(rec.path, cli / "wavs")
     runs = {}
     for name, extra in (("infer_dir", []), ("infer_dir_chunked", ["--chunk-size", "50"])):
-        fused.launches = 0
+        tracing.drain()
         runs[name] = infer_dir.main(["--checkpoint", str(averaged), "--input-dir", str(cli / "wavs"),
                                      "--output-dir", str(cli / name), "--device", "cuda", *extra])
-        launches[name] = fused.launches
+        launches[name] = n_istft()
     frames = 48000 // 256 + 1  # 2 s files
     chunks = -(-frames // 50)
     if launches["infer_dir"] != 3 * 4 or launches["infer_dir_chunked"] != 3 * 4 * chunks:
@@ -1324,12 +1357,12 @@ def gan_grads_card_vs_cpu(card: str) -> dict:
         own = disc if side == "d" else gen
         draws = RolloutDraws(torch.from_numpy(x0_arr).to(dev),
                              torch.from_numpy(gates).to(dev) if side == "g" else None)
-        fused.launches = fused.adjoint_launches = 0
+        tracing.drain()
         loss, _ = fns[side](batch[dev], draws)
         loss.backward(inputs=list(own.parameters()))
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches[side] = (fused.launches, fused.adjoint_launches)
+            launches[side] = (n_istft(), n_adjoint())
         grads = [p.grad.double().cpu() for p in own.parameters()]
         own.zero_grad(set_to_none=True)
         return loss.item(), grads
@@ -1402,9 +1435,9 @@ def run_counting_steps(module, factory: str, args):
 
     def wrap(kind, step):
         def run(*args, **kwargs):
-            f, b = fused.launches, fused.adjoint_launches
+            f, b = n_istft(), n_adjoint()
             out = step(*args, **kwargs)
-            calls.append((kind, fused.launches - f, fused.adjoint_launches - b))
+            calls.append((kind, n_istft() - f, n_adjoint() - b))
             return out
         return run
 
@@ -1442,7 +1475,7 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
         "--tensorboard", "false", "--train-recordings", str(root / "train" / "recordings.jsonl.gz"),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
@@ -1454,7 +1487,7 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
     per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G", "eval")}
     counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
     by_kind = launches_by_kind(calls)
-    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches,
+    launches = {"forward": n_istft(), "adjoint": n_adjoint(),
                 "d_steps": by_kind["D"], "g_steps": by_kind["G"], "validation": by_kind["eval"]}
     if sides != expected or counts["eval"] != 2 or per_kind != {
             "D": [(n, 0)], "G": [(n, n)], "eval": [(n, 0)]}:
@@ -1557,13 +1590,13 @@ def gan_step_profiles(card: str, averaged: Path, d_ms: float, g_ms: float) -> di
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base_gb = torch.cuda.memory_allocated() / 1e9
-        fused.launches = fused.adjoint_launches = 0
+        tracing.drain()
         loss, _ = g_fn(batch, g_draws)
         loss.backward(inputs=params_g)
         torch.cuda.synchronize()
         runs[name] = {"loss": loss.item(), "grads": [p.grad.detach().clone() for p in params_g],
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "base_gb": base_gb,
-                      "launches": (fused.launches, fused.adjoint_launches)}
+                      "launches": (n_istft(), n_adjoint())}
         gen.zero_grad(set_to_none=True)
         del loss
 
@@ -1603,13 +1636,13 @@ def gan_clis(card: str, root: Path, exp: Path) -> int:
         raise AssertionError(f"the GAN average served {tuple(wav.shape)}")
     cli = root / "cli"
     recs = read_recording_manifest(cli / "recordings.jsonl.gz")
-    fused.launches = 0
+    tracing.drain()
     written = infer.main(["--exp-dir", str(exp), "--epoch", "2", "--load-gan", "true",
                           "--n-timesteps", str(GAN_STEPS),
                           "--recordings", str(cli / "recordings.jsonl.gz"),
                           "--root-path", str(root / "valid"), "--output-dir", str(cli / "infer_gan"),
                           "--batch-size", "4", "--num-workers", "2", "--device", "cuda"])
-    launches = fused.launches
+    launches = n_istft()
     for rec, path in zip(recs, written):
         got, sr = read_wav(path)
         if sr != 24000 or got.shape != (1, rec.num_samples) or not np.isfinite(got).all():
@@ -1639,6 +1672,7 @@ def rank_entry(rank: int, world: int, out_dir: str, fn_name: str, spec: dict) ->
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
                       MASTER_ADDR="127.0.0.1", MASTER_PORT=str(spec["port"]))
     disable_tf32()
+    tracing.enable()  # the kernels' launch counters
     if spec["group"] == "nccl1":
         torch.cuda.set_device(0)
         torch.distributed.init_process_group("nccl", rank=0, world_size=1)
@@ -1716,10 +1750,10 @@ def dist_steps(spec: dict) -> dict:
     opt = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
     dist.assert_replicas_equal(list(model.parameters()))
     _grads_by_step(opt, grads, "fm")
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     m = fm_train_step(model, opt, mel, batch, 1e-3, step_generator(0, 0, dev))
     torch.cuda.synchronize()
-    out["fm"] = {"loss": float(m["loss"]), "launches": (fused.launches, fused.adjoint_launches)}
+    out["fm"] = {"loss": float(m["loss"]), "launches": (n_istft(), n_adjoint())}
     dist.assert_replicas_equal(list(model.parameters()))  # raises on every rank if not
     del model, opt, m
     if spec.get("fm_only"):
@@ -1751,11 +1785,11 @@ def dist_steps(spec: dict) -> dict:
             out[f"split_{side}"] = {n: p.grad.detach().double().cpu() for g in own.groups
                                     for n, p in zip(g.names, g.params)}
             own.zero_grad()
-        fused.launches = fused.adjoint_launches = 0
+        tracing.drain()
         m = step(batch, draws)
         torch.cuda.synchronize()
         out[side] = {"loss": float(m["loss_d" if side == "d" else "loss_g"]),
-                     "launches": (fused.launches, fused.adjoint_launches),
+                     "launches": (n_istft(), n_adjoint()),
                      "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
         dist.assert_replicas_equal([*gen.parameters(), *disc.parameters()])
     out["grads"] = grads if dist.is_main() else None
@@ -1879,13 +1913,13 @@ def dist_trainer_rank(spec: dict) -> dict:
 
     ckpt.save_checkpoint, torch.distributed.all_reduce = recording, timed
     pretrain.fm_train_step = marked
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     history = pretrain.run(pretrain.get_parser().parse_args(spec["argv"]))
     torch.cuda.synchronize()
     ms = [(n, a.elapsed_time(b)) for n, a, b in spans]
     per_step = [ms[i:j] for i, j in zip(marks, marks[1:] + [len(ms)])]
     return {"writes": writes, "history": history,
-            "launches": (fused.launches, fused.adjoint_launches),
+            "launches": (n_istft(), n_adjoint()),
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "backend": ",".join(sorted(backends)),
             "all_reduce_by_step": [{"gradient_buckets_ms": sum(t for n, t in s if n >= 1 << 20),
@@ -2088,19 +2122,19 @@ def token_serving(card: str, codebook: Path) -> dict:
     launches of the serving calls and of `reconstruct`."""
     model = get_model("token_24k_base", device="cuda", seed=0, tokenizer=codebook)
     ids = np.random.RandomState(0).randint(0, 1024, (16, 94))
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     for n in (1, 2, 4):
-        before = fused.launches
+        before = n_istft()
         wav = model.infer(ids, n_timesteps=n)
         torch.cuda.synchronize()
         if wav.shape != (16, 24064) or not torch.isfinite(wav).all():
             raise AssertionError(f"token {n}-step output {tuple(wav.shape)} not finite (16, 24064)")
-        if fused.launches - before != 3 * n:
+        if n_istft() - before != 3 * n:
             raise AssertionError(f"token {n}-step call launched the kernel "
-                                 f"{fused.launches - before} times, expected {3 * n}")
-    launches = {"serving": (fused.launches, fused.adjoint_launches)}
-    if fused.adjoint_launches:
-        raise AssertionError(f"token serving launched the adjoint {fused.adjoint_launches} times")
+                                 f"{n_istft() - before} times, expected {3 * n}")
+    launches = {"serving": (n_istft(), n_adjoint())}
+    if n_adjoint():
+        raise AssertionError(f"token serving launched the adjoint {n_adjoint()} times")
     print(f"token serving: token_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches "
           f"{launches['serving'][0]}")
 
@@ -2132,9 +2166,9 @@ def token_serving(card: str, codebook: Path) -> dict:
     noise = torch.from_numpy((0.1 * rng.randn(2, 24064)).astype(np.float32))
     for n in (1, 2, 4):
         with torch.inference_mode():
-            before = fused.launches
+            before = n_istft()
             a = model.module.infer_from_noise(noise.cuda(), cond.cuda(), n_timesteps=n).cpu()
-            if fused.launches - before != 3 * n:
+            if n_istft() - before != 3 * n:
                 raise AssertionError("the token card run did not go through the kernel")
             b = cpu.infer_from_noise(noise, cond, n_timesteps=n)
         rel = (a - b).abs().max().item() / b.abs().max().item()
@@ -2142,11 +2176,11 @@ def token_serving(card: str, codebook: Path) -> dict:
         if not rel <= CARD_VS_CPU_TOL:
             raise AssertionError(f"token_24k_base: card and CPU disagree at {n} steps: {rel}")
 
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     wav = model.reconstruct(0.1 * torch.randn(4, 24000, generator=torch.Generator().manual_seed(3)),
                             n_timesteps=1)
     torch.cuda.synchronize()
-    launches["reconstruct"] = (fused.launches, fused.adjoint_launches)
+    launches["reconstruct"] = (n_istft(), n_adjoint())
     if wav.shape != (4, 24064) or not torch.isfinite(wav).all() or launches["reconstruct"] != (3, 0):
         raise AssertionError(f"token reconstruct gave {tuple(wav.shape)}, launches "
                              f"{launches['reconstruct']}")
@@ -2169,12 +2203,12 @@ def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
         "--tensorboard", "false", "--train-recordings", str(root / "train_half.jsonl.gz"),
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history, calls = run_counting_steps(pretrain, "fm_train_step", args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches}
+    launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     steps = len(history)
     if steps != TOKEN_STEPS or {c[1:] for c in calls} != {(3, 3)} or len(calls) != steps or \
             launches != {"forward": 3 * (steps + 2), "adjoint": 3 * steps}:
@@ -2215,7 +2249,7 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
         "--exp-dir", str(exp), "--generator-model-path", str(averaged), "--tensorboard", "false",
         "--train-recordings", str(root / "train_half.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
     n = 3 * GAN_STEPS
@@ -2223,7 +2257,7 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
     per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G")}
     g_steps = sides.count("G")
     by_kind = launches_by_kind(calls)
-    launches = {"forward": fused.launches, "adjoint": fused.adjoint_launches,
+    launches = {"forward": n_istft(), "adjoint": n_adjoint(),
                 "d_steps": by_kind["D"], "g_steps": by_kind["G"]}
     if sides != TOKEN_GAN_SIDES or per_kind != {"D": [(n, 0)], "G": [(n, n)]} or \
             launches["forward"] != n * len(calls) or launches["adjoint"] != n * g_steps:
@@ -2278,12 +2312,12 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
     recs = read_recording_manifest(cli / "recordings.jsonl.gz")
     common = ["--model-name", "token_24k_base", "--checkpoint", str(averaged), "--device", "cuda"]
     launches = {}
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     written = infer.main([*common, "--tokenizer", str(codebook),
                           "--recordings", str(cli / "recordings.jsonl.gz"),
                           "--root-path", str(root / "valid"), "--output-dir", str(out / "infer"),
                           "--batch-size", "4", "--num-workers", "2"])
-    launches["infer"] = (fused.launches, fused.adjoint_launches)
+    launches["infer"] = (n_istft(), n_adjoint())
     for rec, path in zip(recs, written):
         got, sr = read_wav(path)
         if sr != 24000 or got.shape != (1, rec.num_samples) or not np.isfinite(got).all():
@@ -2301,9 +2335,9 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
                         ("tokens", ["--input-dir", str(out / "ids"), "--tokens", "true"])):
         for chunked, extra in ((False, []), (True, ["--chunk-size", "50"])):
             key = f"infer_dir_{name}" + ("_chunked" if chunked else "")
-            fused.launches = fused.adjoint_launches = 0
+            tracing.drain()
             runs[key] = infer_dir.main([*common, *flags, "--output-dir", str(out / key), *extra])
-            launches[key] = (fused.launches, fused.adjoint_launches)
+            launches[key] = (n_istft(), n_adjoint())
     frames = 48000 // 256 + 1  # 2 s files
     chunks = -(-frames // 50)
     if any(launches[k] != (3 * 4 * (chunks if k.endswith("chunked") else 1), 0) for k in runs):
@@ -2458,12 +2492,12 @@ def observability_pretrain(card: str, root: Path, test: Path, base_step_ms: floa
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz"),
         "--test-recordings", str(test), "--save-infer-steps", "1,2,4",
         "--profile-dir", str(prof), "--inf-check", "true", "--tensorboard", "true"])
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history, calls = run_counting_steps(pretrain, "fm_train_step", args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = (fused.launches, fused.adjoint_launches)
+    launches = (n_istft(), n_adjoint())
     # each validation: one batch of 16 (3 launches), then the 4 test files
     # synthesised at 1, 2 and 4 steps (3 launches a step)
     expected = (3 * OBS_STEPS + 2 * (3 + 3 * (1 + 2 + 4)), 3 * OBS_STEPS)
@@ -2524,14 +2558,14 @@ def observability_inf_check(card: str, root: Path) -> tuple:
             batch["audio"][0] = float("nan")
         return step(model, optimizer, cond_fn, batch, *rest)
 
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     pretrain.fm_train_step = poisoned
     try:
         history = pretrain.run(args)
     finally:
         pretrain.fm_train_step = step
     torch.cuda.synchronize()
-    launches = (fused.launches, fused.adjoint_launches)
+    launches = (n_istft(), n_adjoint())
     log = trainer_log(exp)
     dominant = [m for m in log if m.startswith("Dominant grad: ")]
     modules = [m for m in log if m.startswith("The output of module ")]
@@ -2575,13 +2609,13 @@ def observability_diagnostics(card: str, root: Path, module, argv: list, expecte
         "--device", "cuda", "--exp-dir", str(exp), "--tensorboard", "false",
         "--print-diagnostics", "true",
         "--train-recordings", str(root / "train" / "recordings.jsonl.gz")])
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
     history = module.run(args)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - start
-    launches = (fused.launches, fused.adjoint_launches)
+    launches = (n_istft(), n_adjoint())
     log = trainer_log(exp)
     tables = diagnostics_tables(log)
     if (len(history) != 5 or log[-1] != "Diagnostics done, exiting" or launches != expected
@@ -2612,7 +2646,7 @@ def observability_finetune(card: str, root: Path, test: Path, averaged: Path) ->
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz"),
         "--test-recordings", str(test), "--profile-dir", str(prof), "--inf-check", "true",
         "--tensorboard", "true"])
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     start = time.perf_counter()
     history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
@@ -2622,7 +2656,7 @@ def observability_finetune(card: str, root: Path, test: Path, averaged: Path) ->
     counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
     sides = "".join(h["side"] for h in history)
     # the test samples: 4 files at GAN_STEPS steps after each of 2 validations
-    launches = (fused.launches, fused.adjoint_launches)
+    launches = (n_istft(), n_adjoint())
     expected = (n * len(calls) + 2 * n, n * counts["G"])
     if (sides != "DD" + "GD" * 7 or per_kind != {"D": [(n, 0)], "G": [(n, n)], "eval": [(n, 0)]}
             or counts["eval"] != 2 or launches != expected):
@@ -2754,12 +2788,12 @@ def recipe(card: str, root: Path) -> dict:
 
     launches = {}
     test_manifest = data / "libritts_recordings_test_clean.jsonl.gz"
-    fused.launches = fused.adjoint_launches = 0
+    tracing.drain()
     written = infer.main(["--model-name", "mel_24k_base", "--checkpoint",
                           str(exp / "gan_1step/generator.pt"), "--recordings", str(test_manifest),
                           "--root-path", str(corpus), "--output-dir", str(root / "infer_again"),
                           "--n-timesteps", "1", "--device", "cuda"])
-    launches["recipe_infer_stage_1_step"] = (fused.launches, fused.adjoint_launches)
+    launches["recipe_infer_stage_1_step"] = (n_istft(), n_adjoint())
     for path, again in zip(wavs, sorted(written)):
         ours, _ = read_wav(again)
         theirs, _ = read_wav(path)
@@ -2771,11 +2805,11 @@ def recipe(card: str, root: Path) -> dict:
     outs = {}
     for name, module, argv in [("from_mel", from_mel, ["--mel-file", str(root / "test_0000_mel.npy")]),
                                ("from_wav", from_wav, ["--wav-file", str(wavs[0])])]:
-        fused.launches = fused.adjoint_launches = 0
+        tracing.drain()
         out = module.main([*argv, "--checkpoint", str(exp / "gan_1step/generator.pt"),
                            "--n-timesteps", "1", "--output", str(root / f"{name}.wav"),
                            "--device", "cuda"])
-        launches[f"recipe_{name}_1_step"] = (fused.launches, fused.adjoint_launches)
+        launches[f"recipe_{name}_1_step"] = (n_istft(), n_adjoint())
         outs[name], sr = read_wav(out)
         if sr != 24000 or outs[name].shape != (1, mel.shape[-1] * 256) or not np.isfinite(outs[name]).all():
             raise AssertionError(f"bin/{name}.py wrote {outs[name].shape} at {sr} Hz")
@@ -2836,6 +2870,9 @@ def main() -> int:
     # IEEE float32 for the plain iSTFT's matmuls from the first comparison
     # on; get_model would set the same
     disable_tf32()
+    # the kernels' launch counters count while the program's tracing is on;
+    # the timings turn it off (`untraced`)
+    tracing.enable()
     clock = PhaseClock()
     card = card_line()
     print(f"card: {card}")

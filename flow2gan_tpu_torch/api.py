@@ -20,6 +20,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.compat.from_reference import load_weights
 from flow2gan_tpu_torch.models import BaseAudioGenerator, build_generator, get_generator_config
 from flow2gan_tpu_torch.models.config import (
@@ -103,10 +104,11 @@ class VocoderModel:
     @torch.inference_mode()
     def infer(self, cond, n_timesteps: Optional[int] = None, clamp_pred: bool = True,
               seed: int = 0) -> torch.Tensor:
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        n = n_timesteps if n_timesteps is not None else self.n_timesteps
-        return self.module.infer(self._on_device(cond), n_timesteps=n, clamp_pred=clamp_pred,
-                                 generator=gen)
+        with tracing.span("api.infer", root=True):
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            n = n_timesteps if n_timesteps is not None else self.n_timesteps
+            return self.module.infer(self._on_device(cond), n_timesteps=n, clamp_pred=clamp_pred,
+                                     generator=gen)
 
     def cond(self, audio) -> torch.Tensor:
         """(B, L) audio -> the config's conditioning: `tokens` for a token

@@ -40,12 +40,13 @@ gradients over the ranks:
 Observability as in `bin/pretrain.py`, for the side that stepped:
 `--tensorboard` (on by default; every metric of the batch at the log
 interval and the one after it, the validation, and the test samples at
-`--n-timesteps`), `--profile-dir` (batches 10-15), `--inf-check` (the
-dominant gradients of whichever side was clipped to zero, the D or the G
-step keeping its gradients for it, and the non-finite generator outputs of
-an eval-form rollout) and `--print-diagnostics` (the generator's tables
-over 5 batches through the G objective's train-form rollout, without
-`--remat-rollout`, whose recompute would run the hooks again; then exit).
+`--n-timesteps`), `--profile-dir` (batches 10-15, with the program's spans
+over the kernels), `--inf-check` (the dominant gradients of whichever side
+was clipped to zero, the D or the G step keeping its gradients for it, and
+the non-finite generator outputs of an eval-form rollout) and
+`--print-diagnostics` (the generator's tables over 5 batches through the G
+objective's train-form rollout, without `--remat-rollout`, whose recompute
+would run the hooks again; then exit).
 Every checkpoint holds `env_info`.
 """
 
@@ -159,7 +160,9 @@ def get_parser():
                         help="Collect the generator's activation, parameter and gradient tables "
                         "and PReLU histograms through the G objective for 5 batches, print, exit")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Write a torch.profiler trace of batches 10-15 into this directory")
+                        help="Write a torch.profiler trace of batches 10-15 into this directory "
+                        "(a Chrome trace), the program's spans (the Euler steps, the branches, "
+                        "ScaledAdam, each all-reduce, the loader) over the kernels")
     parser.add_argument("--remat-rollout", type=str2bool, default=False,
                         help="Recompute each Euler step of the G step's rollout in backward")
     parser.add_argument("--freeze-modules", type=str, default=None,

@@ -45,7 +45,9 @@ Observability, as in the JAX package:
   and then at each of `--save-infer-steps`, in `<exp-dir>/tensorboard`
   (`utils_tb.py`, the port's own event writer; rank 0 writes);
 - `--profile-dir`: a torch.profiler trace of global batches 10-15, written
-  there as a Chrome trace;
+  there as a Chrome trace, with the program's spans (`tracing`: the FM
+  step's phases, the branches, ScaledAdam, each all-reduce, the loader)
+  over the kernels;
 - `--inf-check`: on a step clipped to zero, the parameters that dominate
   its gradient norm; on a non-finite loss, the non-finite parameters and
   the modules whose outputs were not finite, replayed on the batch;
@@ -67,6 +69,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.data.dataset import build_data_loader, read_recording_manifest
 from flow2gan_tpu_torch.models import build_generator, get_generator_config
@@ -155,7 +158,8 @@ def get_parser():
     parser.add_argument("--tensorboard", type=str2bool, default=True)
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="Write a torch.profiler trace of batches 10-15 into this directory "
-                        "(a Chrome trace)")
+                        "(a Chrome trace), the program's spans (the FM step's phases, the "
+                        "branches, ScaledAdam, each all-reduce, the loader) over the kernels")
     parser.add_argument("--freeze-modules", type=str, default=None,
                         help="CSV of parameter-path prefixes to freeze (lr 0), e.g. "
                         "'cond_encoder,estimators_0'")
@@ -351,18 +355,23 @@ def save_test_samples(tb_writer: SummaryWriter, model, mel_fn, cond_fn, test_bat
 class ProfileWindow:
     """--profile-dir: a torch.profiler trace (host, and the card's kernels
     on the card) from the start of global batch 10 to the end of batch 15,
-    exported into the directory as a Chrome trace."""
+    exported into the directory as a Chrome trace. The window turns the
+    program's tracing on, so that its spans mark the trace; where tracing
+    was already on, it is left on and its spans and counters are kept."""
 
     def __init__(self, profile_dir: Optional[str], device: torch.device):
         self.dir = Path(profile_dir) if profile_dir else None
         self.device = device
         self.prof = None
+        self.traced = False  # whether the window turned tracing on
 
     def before(self, batch_idx_train: int) -> None:
         if self.dir is not None and batch_idx_train == PROFILED_BATCHES[0]:
             activities = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.traced = not tracing.enabled()
+            tracing.enable()
             self.prof = torch.profiler.profile(activities=activities)
             self.prof.start()
 
@@ -378,6 +387,10 @@ class ProfileWindow:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.prof.stop()
+        if self.traced:
+            tracing.disable()
+            tracing.drain()
+            self.traced = False
         self.dir.mkdir(parents=True, exist_ok=True)
         first, last = PROFILED_BATCHES
         path = self.dir / f"trace-batches-{first}-{last}-rank{dist.rank()}.json"

@@ -38,6 +38,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.data import native_audio
 from flow2gan_tpu_torch.data.audio_io import peak_normalize_db, read_wav, resample
 from flow2gan_tpu_torch.parallel import dist
@@ -274,8 +275,9 @@ class DataLoader:
         epoch = self.epoch
 
         def load_batch(idx_list):
-            items = [self.dataset.__getitem__(int(i), epoch=epoch) for i in idx_list]
-            return pad_collate(items, self.length)
+            with tracing.span("loader.assemble"):
+                items = [self.dataset.__getitem__(int(i), epoch=epoch) for i in idx_list]
+                return pad_collate(items, self.length)
 
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -308,7 +310,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
+                with tracing.span("loader.wait"):
+                    item = out_q.get()
                 if item is None:
                     # the end of the epoch's stream (an early break by the
                     # consumer skips this and keeps the position)

@@ -41,6 +41,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.models.convnext import AudioConvNeXt, CondEncoder
 from flow2gan_tpu_torch.models.norms import number_limiters
 from flow2gan_tpu_torch.ops.mel import linear_fbanks, linear_filter_spectrogram
@@ -204,9 +205,11 @@ class BaseAudioGenerator(nn.Module):
         """Run every branch on waveform x (B, L) at flow time t (B,) and fuse,
         each example's branches weighted by `branch_weight` (B, n_branches)
         where branch dropout is on."""
-        outs = torch.stack(
-            [est(x, cond, t, audio_lens=audio_lens, gates=gates) for est in self.estimators], dim=1
-        )
+        outs = []
+        for i, est in enumerate(self.estimators):
+            with tracing.span("branch", i):
+                outs.append(est(x, cond, t, audio_lens=audio_lens, gates=gates))
+        outs = torch.stack(outs, dim=1)
         if branch_weight is not None:
             outs = outs * branch_weight[..., None]
         return outs.mean(dim=1) if self.branch_reduction == "mean" else outs.sum(dim=1)
@@ -315,7 +318,8 @@ class BaseAudioGenerator(nn.Module):
                 draws: FMDraws, count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """FM loss. cond: the subclass's conditioning, frames on its last
         axis; audio: (B, L); `count` as in `compute_loss`."""
-        cond = self._encode_cond(cond, draws.cond_noise, draws.gates)
+        with tracing.span("cond_encoder"):
+            cond = self._encode_cond(cond, draws.cond_noise, draws.gates)
         return self.flow_matching_loss(draws.x0, audio, cond, audio_lens, t=draws.t,
                                        gates=draws.gates, branch_weight=draws.branch_weight,
                                        count=count)
@@ -346,10 +350,12 @@ class BaseAudioGenerator(nn.Module):
         x = noise
         for step in range(n_timesteps):
             args = (x, cond, step * dt, dt, audio_lens, None if gates is None else gates[step])
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(self._euler_step, *args, use_reentrant=False)
-            else:
-                x = self._euler_step(*args)
+            with tracing.span("solve.step", step):
+                if remat:
+                    x = torch.utils.checkpoint.checkpoint(self._euler_step, *args,
+                                                          use_reentrant=False)
+                else:
+                    x = self._euler_step(*args)
         if clamp_pred:
             x = torch.clamp(x, -1.0, 1.0)
         return x
@@ -395,7 +401,8 @@ class BaseAudioGenerator(nn.Module):
         gates = draws.gates
         if gates is not None and gates.shape[0] != n_timesteps:
             raise ValueError(f"gates hold {gates.shape[0]} steps, the solve takes {n_timesteps}")
-        cond = self._encode_cond(cond, gates=None if gates is None else gates[0])
+        with tracing.span("cond_encoder"):
+            cond = self._encode_cond(cond, gates=None if gates is None else gates[0])
         return self.solve(draws.x0, cond, audio_lens, n_timesteps, gates=gates, remat=remat)
 
     def infer(
@@ -428,7 +435,9 @@ class BaseAudioGenerator(nn.Module):
         On the card this expects TF32 off (`utils.disable_tf32`, which
         `api.get_model` calls), so matmuls and cuDNN convs run in IEEE float32.
         """
-        return self.solve(noise, self._encode_cond(cond), audio_lens, n_timesteps, clamp_pred)
+        with tracing.span("cond_encoder"):
+            cond = self._encode_cond(cond)
+        return self.solve(noise, cond, audio_lens, n_timesteps, clamp_pred)
 
 
 class MelAudioGenerator(BaseAudioGenerator):

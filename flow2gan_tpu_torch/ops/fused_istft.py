@@ -7,9 +7,9 @@ launches the fused kernel and its backward the adjoint kernel; for a CPU
 tensor they are the plain versions, `istft_plain` (`ops.stft.istft`) and
 `istft_adjoint_plain`. The iSTFT is linear, so the backward needs only the
 shapes. `fused_istft` is what the model calls; `istft_kernel` is the same for
-CUDA tensors only and raises on a CPU one. `launches` and `adjoint_launches`
-count the two kernels' launches, so a run can show that its path went through
-them.
+CUDA tensors only and raises on a CPU one. Each launch adds 1 to the tracing
+counter `istft.launches` or `istft.adjoint_launches` (`tracing.count`, while
+its switch is on), so a run can show that its path went through them.
 
 The kernels compute each frame's real DFT as an N/2-point complex FFT. What
 they read besides the spectrogram or the gradient and the envelope comes from
@@ -27,13 +27,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops.stft import const_tensor, envelope, hann_window_np
 from flow2gan_tpu_torch.ops.stft import istft as istft_plain
 from flow2gan_tpu_torch.ops.stft import istft_adjoint as istft_adjoint_plain
-
-launches = 0
-adjoint_launches = 0
 
 N_FFTS = (64, 128, 256, 512, 1024)
 # The tile rule, tuned on an H100 at the six main-path shapes (PERF.md):
@@ -282,7 +280,6 @@ def _check_cuda(x: torch.Tensor, name: str, dtype: torch.dtype, n_fft: int, hop_
 def _launch_istft(spec: torch.Tensor, n_fft: int, hop_length: int, length: int) -> torch.Tensor:
     """Launch the fused iSTFT kernel: complex64 (B, T_f, n_fft//2+1) on the
     card -> float32 (B, length), the same function as `istft_plain`."""
-    global launches
     _check_cuda(spec, "istft_kernel", torch.complex64, n_fft, hop_length)
     if spec.ndim != 3 or spec.shape[-1] != n_fft // 2 + 1:
         raise ValueError(f"expected (B, T_f, {n_fft // 2 + 1}), got {tuple(spec.shape)}")
@@ -302,14 +299,13 @@ def _launch_istft(spec: torch.Tensor, n_fft: int, hop_length: int, length: int) 
     )
     if err != 0:
         raise RuntimeError(f"fused_istft launch failed: cudaError {err}")
-    launches += 1
+    tracing.count("istft.launches")
     return out
 
 
 def istft_adjoint_kernel(grad: torch.Tensor, t_f: int, n_fft: int, hop_length: int) -> torch.Tensor:
     """Launch the adjoint kernel: float32 (B, length) on the card -> complex64
     (B, t_f, n_fft//2+1), the same function as `istft_adjoint_plain`."""
-    global adjoint_launches
     _check_cuda(grad, "istft_adjoint_kernel", torch.float32, n_fft, hop_length)
     if grad.ndim != 2:
         raise ValueError(f"expected a (B, length) gradient, got {tuple(grad.shape)}")
@@ -328,7 +324,7 @@ def istft_adjoint_kernel(grad: torch.Tensor, t_f: int, n_fft: int, hop_length: i
     )
     if err != 0:
         raise RuntimeError(f"fused_istft_adjoint launch failed: cudaError {err}")
-    adjoint_launches += 1
+    tracing.count("istft.adjoint_launches")
     return out
 
 

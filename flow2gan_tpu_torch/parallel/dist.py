@@ -29,6 +29,8 @@ from typing import List, NamedTuple, Sequence, Union
 import torch
 import torch.distributed as dist
 
+from flow2gan_tpu_torch import tracing
+
 
 class Shard(NamedTuple):
     """This process's rows of a global batch: rows [index * n, (index + 1) *
@@ -133,7 +135,10 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> None:
         for t in group + [None]:
             if t is None or (bucket and size + t.numel() * t.element_size() > BUCKET_BYTES):
                 flat = torch.cat([b.reshape(-1) for b in bucket])
-                dist.all_reduce(flat)
+                with tracing.span("dist.all_reduce", device=flat.device):
+                    dist.all_reduce(flat)
+                tracing.count("collectives")
+                tracing.count("collective_bytes", flat.numel() * flat.element_size())
                 for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
                     b.copy_(part.view_as(b))
                 bucket, size = [], 0

@@ -34,6 +34,8 @@ from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, 
 
 import torch
 
+from flow2gan_tpu_torch import tracing
+
 
 @dataclasses.dataclass
 class _Group:
@@ -168,8 +170,12 @@ class ScaledAdam:
         self.num_clipped = self.num_clipped + (ans < 1.0).int()
         return ans
 
-    @torch.no_grad()
     def step(self, lr: float) -> None:
+        with tracing.span("optim.step", device=self.clip_scale.device):
+            self._step(lr)
+
+    @torch.no_grad()
+    def _step(self, lr: float) -> None:
         beta1, beta2 = self.betas
         period_t = self.size_update_period
         step = self.step_count

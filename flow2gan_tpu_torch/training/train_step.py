@@ -21,6 +21,7 @@ from typing import Callable, Dict
 
 import torch
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.models.generator import BaseAudioGenerator
 from flow2gan_tpu_torch.parallel import dist
 from flow2gan_tpu_torch.training.optim import ScaledAdam
@@ -53,18 +54,23 @@ def fm_train_step(
     `cond_fn(audio)`; returns the
     global loss and clip_scale (device tensors), the lr and this rank's
     sample count."""
-    audio, lens = batch["audio"], batch["audio_lens"]
-    with torch.no_grad():
-        cond = cond_fn(audio)
-    shard = dist.shard()
-    draws = model.draw(audio, cond.shape[-1], generator, train=True, shard=shard)
-    count = _global_count(model, audio, lens) if shard.count > 1 else None
-    loss = model(cond, audio, lens, draws, count=count)
-    optimizer.zero_grad()
-    loss.backward()
-    loss = loss.detach()
-    dist.all_reduce_grads_([p for g in optimizer.groups for p in g.params], [loss])
-    optimizer.step(lr)
+    with tracing.span("fm.step", root=True):
+        audio, lens = batch["audio"], batch["audio_lens"]
+        with tracing.span("fm.frontend"), torch.no_grad():
+            cond = cond_fn(audio)
+        shard = dist.shard()
+        with tracing.span("fm.draws"):
+            draws = model.draw(audio, cond.shape[-1], generator, train=True, shard=shard)
+        with tracing.span("fm.forward"):
+            count = _global_count(model, audio, lens) if shard.count > 1 else None
+            loss = model(cond, audio, lens, draws, count=count)
+        with tracing.span("fm.backward"):
+            optimizer.zero_grad()
+            loss.backward()
+        loss = loss.detach()
+        with tracing.span("dist.grads"):
+            dist.all_reduce_grads_([p for g in optimizer.groups for p in g.params], [loss])
+        optimizer.step(lr)
     return {"loss": loss, "lr": lr, "clip_scale": optimizer.clip_scale,
             "samples": audio.shape[0]}
 

@@ -33,6 +33,7 @@ import torch
 import torch.distributed
 import torch.multiprocessing
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.api import init_weights
 from flow2gan_tpu_torch.bin import finetune, pretrain, train_tokenizer
 from flow2gan_tpu_torch.data import audio_io, dataset
@@ -113,6 +114,15 @@ def _fm_step(spec) -> dict:
     batch = {"audio": shard.rows(spec["audio"]), "audio_lens": shard.rows(spec["lens"])}
     metrics = fm_train_step(model, opt, mel, batch, LR, step_generator(1, 0, "cpu"))
     return {"loss": float(metrics["loss"]), "params": model.state_dict()}
+
+
+def _traced_fm_step(spec) -> dict:
+    """`_fm_step` with the program's tracing on: also its counters and the
+    names of its spans."""
+    tracing.enable()
+    out = _fm_step(spec)
+    drained = tracing.drain()
+    return dict(out, counters=drained.counters, spans=[s.name for s in drained.spans])
 
 
 def _gan_models(spec):

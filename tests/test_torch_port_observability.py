@@ -35,7 +35,7 @@ from flow2gan_tpu.training import diagnostics as jdiag
 from flow2gan_tpu.training import hooks as jhooks
 from flow2gan_tpu.training import optim as joptim
 
-from flow2gan_tpu_torch import utils_tb
+from flow2gan_tpu_torch import tracing, utils_tb
 from flow2gan_tpu_torch.compat.from_jax import jax_params_to_state_dict, load_jax_params
 from flow2gan_tpu_torch.models import FMDraws, build_generator
 from flow2gan_tpu_torch.models import discriminators as pd
@@ -627,7 +627,12 @@ def test_pretrain_runs_every_observability_flag(tmp_path, monkeypatch):
     assert "The output of module cond_encoder.in_proj is not finite" in warned
     assert not any("replay failed" in w for w in warned)
     (trace,) = (tmp_path / "prof").glob("trace-batches-2-3-rank0.json")
-    assert json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert events
+    # the window turned the program's tracing on: its spans mark the trace
+    marks = {e.get("name") for e in events if e.get("cat") == "user_annotation"}
+    assert {"fm.step", "fm.forward", "fm.backward", "optim.step", "branch"} <= marks
+    assert not tracing.enabled()
     tags = _tags(exp)
     assert {"train/current_loss_0", "train/learning_rate", "train/tot_loss_0_loss",
             "train/valid_loss"} <= set(tags["scalars"])
@@ -661,6 +666,8 @@ def test_finetune_runs_every_observability_flag(tmp_path, monkeypatch):
     (every metric of both sides, the test samples at 2 steps), the profiled
     window, --inf-check on a poisoned G step (the G side's dominant
     gradients); then --print-diagnostics through the G objective."""
+    import json
+
     import flow2gan_tpu_torch
     from flow2gan_tpu_torch.bin import finetune
     from flow2gan_tpu_torch.bin import pretrain
@@ -694,7 +701,11 @@ def test_finetune_runs_every_observability_flag(tmp_path, monkeypatch):
     assert any(w.startswith("Dominant G grad: ") for w in warned)
     assert any(w.startswith("The output of module ") for w in warned)
     assert not any("replay failed" in w for w in warned)
-    assert list((tmp_path / "prof").glob("trace-batches-3-4-rank0.json"))
+    (trace,) = (tmp_path / "prof").glob("trace-batches-3-4-rank0.json")
+    marks = {e.get("name") for e in json.loads(trace.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"}
+    assert {"solve.step", "branch", "optim.step"} <= marks
+    assert not tracing.enabled()
     tags = _tags(exp)
     assert {"train/loss_d", "train/disc_loss_mp", "train/lr_d", "train/loss_g",
             "train/mel_recon_loss", "train/lr_g", "train/clip_scale", "train/valid_loss_g",
