@@ -34,7 +34,10 @@ its wall time (phase 18 one such line for each of its parts):
 5. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
    mel at 1, 2 and 4 Euler steps, with the launch count of the kernel over
    that run, then the per-call time and x-real-time over timed calls, and
-   mel_44k_128band_512x_base once at 1 step;
+   mel_44k_128band_512x_base once at 1 step (the timed calls of this and
+   the later serving phases, and the one-call profiles, run the eager path,
+   `eager_infer`: a timed call repeats one key, which `infer` would replay
+   as a CUDA graph, and phase 22 times the replays);
 6. card against CPU: the same weights and x0 through `infer_from_noise`;
 7. `reconstruct` from a waveform;
 8. the device-time breakdown of one 1-step call (torch.profiler);
@@ -178,7 +181,25 @@ its wall time (phase 18 one such line for each of its parts):
    (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
    exported generator, each output checked;
 21. the `kernels` JSON line (each kernel's launches on every path, the
-   data-parallel ones per rank), then the card line and the result line.
+   data-parallel ones per rank; on a path where `infer` replays CUDA graphs,
+   the kernels the profiler saw the device run, since a replay launches
+   nothing from the host and so adds nothing to `istft.launches`), then the
+   card line and the result line;
+22. (run after phase 12) `VocoderModel.infer`'s CUDA graphs: on a fresh model
+   one eager call, one capture and four replays at other seeds, each output
+   equal to the eager path's (`torch.equal`), for mel_44k_128band_512x_base
+   at 1 step on the stream chunk (1, 128, 148), mel_24k_base at 1 and 4
+   steps at batch 16, its bf16 build and token_24k_base; consecutive
+   replays' outputs held apart; the profiler's `fused_istft` kernels in N
+   replays 3 x steps x N, and `istft.launches` unchanged by them; the
+   profiler's kernels in five replays against five eager calls, and a
+   capture made under the profiler; a 30 s stream through `streaming_infer`
+   against the eager stream, bit for bit, with the profiler's `fused_istft`
+   kernels over it 3 x chunks; three keys captured in turn for three
+   rounds, each output equal to eager, the allocator's reserved bytes not
+   growing past the first round's (one capture stream and pool a model),
+   the ms of a capturing call beside an eager one; the host's ms a chunk,
+   replayed and eager.
 """
 
 from __future__ import annotations
@@ -581,6 +602,14 @@ def check_adjoint_float64(n_fft, hop, batch, t_f, length) -> dict:
     return row
 
 
+def eager_infer(vm: VocoderModel, cond, n: int, seed: int) -> torch.Tensor:
+    """What `vm.infer(cond, n_timesteps=n, seed=seed)` computes eagerly, past
+    its graph rule."""
+    with torch.inference_mode():
+        gen = torch.Generator(device=vm.device).manual_seed(seed)
+        return vm.module.infer(vm._on_device(cond), n_timesteps=n, clamp_pred=True, generator=gen)
+
+
 @untraced()
 def time_calls(fn, calls: int = TIMED_CALLS):
     """Host wall time per call in ms, each call ended by a device sync."""
@@ -618,7 +647,7 @@ def main_path(card: str, model, mel):
     audio_s = 16 * 24064 / 24000
     median_ms = {}
     for n in (1, 2, 4):
-        ms = time_calls(lambda: model.infer(mel, n_timesteps=n))
+        ms = time_calls(lambda: eager_infer(model, mel, n, 0))
         med = median_ms[n] = statistics.median(ms)
         print("main path timing " + json.dumps({
             "config": "mel_24k_base", "n_timesteps": n, "batch": 16, "mel_frames": 94,
@@ -636,7 +665,7 @@ def main_path(card: str, model, mel):
     launches44 = n_istft()
     if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or launches44 != 3:
         raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, {launches44} launches")
-    ms = time_calls(lambda: model44.infer(mel44, n_timesteps=1), calls=5)
+    ms = time_calls(lambda: eager_infer(model44, mel44, 1, 0), calls=5)
     print("44.1 kHz: mel_44k_128band_512x_base 1 step, batch 16 " + json.dumps(
         {"ms_median": statistics.median(ms), "x_real_time_median":
          16 * 44544 / 44100 / statistics.median(ms) * 1e3, "card": card}))
@@ -725,6 +754,24 @@ def _family(name: str) -> str:
     return "gemm" if _GEMM_NAMES.search(name) else "elementwise, reductions, copies"
 
 
+@contextlib.contextmanager
+def kernels_run():
+    """A dict that gets, when the context closes, the device kernels the
+    profiler saw run inside it, CUDA graph replays included: all of them
+    (`kernels`), and the fused iSTFT's (`forward`) and its adjoint's
+    (`adjoint`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield runs
+        torch.cuda.synchronize()
+    rows = device_kernels(prof)
+    runs["kernels"] = sum(c for _, _, c in rows)
+    for key, family in (("forward", "fused_istft"), ("adjoint", "fused_istft_adjoint")):
+        runs[key] = sum(c for _, name, c in rows if _family(name) == family)
+
+
 # cuDNN's convolution kernels (forward, data and weight gradients): the
 # discriminators' Conv2d, and the generator's k=3 input conv
 _CONV_NAMES = re.compile(r"fprop|dgrad|wgrad|convolve|conv2d|implicit", re.IGNORECASE)
@@ -737,14 +784,14 @@ def _gan_family(name: str) -> str:
 
 
 def profile_one_call(card: str, model, mel, wall_ms: float, label: str) -> dict:
-    """Device time of one 1-step call by kernel family, the GEMMs split by
-    input dtype, and the device's busy share against the unprofiled median
-    call time; returns the GEMM split."""
+    """Device time of one eager 1-step call by kernel family, the GEMMs split
+    by input dtype, and the device's busy share against the unprofiled
+    median call time; returns the GEMM split."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
-        model.infer(mel, n_timesteps=1)
+        eager_infer(model, mel, 1, 0)
         torch.cuda.synchronize()
 
     kernels = device_kernels(prof)
@@ -1130,7 +1177,7 @@ def bf16_serving(card: str, model32, mel) -> int:
                "audio_s": audio_s, "card": card}
         for name, m in (("f32", model32), ("bf16", model16), ("f32_again", model32),
                         ("bf16_again", model16)):
-            ms = time_calls(lambda: m.infer(mel, n_timesteps=n))
+            ms = time_calls(lambda: eager_infer(m, mel, n, 0))
             med = statistics.median(ms)
             row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
                          "x_real_time_median": audio_s / med * 1e3,
@@ -1165,6 +1212,161 @@ def card_vs_cpu_44k(card: str) -> int:
           f"launches {launches}")
     if launches != 3 or not rel <= CARD_VS_CPU_TOL:
         raise AssertionError(f"44.1 kHz: card and CPU disagree ({rel}) or {launches} launches")
+    return launches
+
+
+def graph_counts() -> dict:
+    return {k: tracing.counter(f"infer.{k}") for k in ("eager_calls", "graph_captures",
+                                                       "graph_replays")}
+
+
+def check_graph_replays(label: str, vm: VocoderModel, cond, n: int, replays: int = 4) -> dict:
+    """Calls with one key on a fresh model (eager, capture, then `replays`
+    replays at other seeds) against the eager path, bit for bit; the held
+    outputs of consecutive replays stay apart; a replay at another seed
+    draws that seed's x0; the eager call and the capture's warm-up launch
+    the fused iSTFT 3 x steps times each; the replays launch it from the
+    host none, and the profiler sees the device run it 3 x steps x N times
+    in N replays."""
+    seeds = [11, 11] + [12 + k for k in range(replays)]
+    refs = {s: eager_infer(vm, cond, n, s) for s in set(seeds)}
+    tracing.drain()
+    outs = []
+    for s in seeds[:2]:
+        outs.append(vm.infer(cond, n_timesteps=n, seed=s))
+    per_call = n_istft() / 2
+    before = n_istft()
+    with kernels_run() as runs:
+        for s in seeds[2:]:
+            outs.append(vm.infer(cond, n_timesteps=n, seed=s))
+    counted = n_istft() - before
+    counts = graph_counts()
+    if counts != {"eager_calls": 1, "graph_captures": 1, "graph_replays": replays}:
+        raise AssertionError(f"{label}: calls ran {counts}, expected 1 eager, 1 capture and "
+                             f"{replays} replays")
+    if per_call != 3 * n or counted != 0 or runs["forward"] != replays * 3 * n:
+        raise AssertionError(f"{label}: {per_call} launches an eager call; over {replays} "
+                             f"replays {counted} counted, {runs['forward']} run on the device")
+    bad = [s for s, out in zip(seeds, outs) if not torch.equal(out, refs[s])]
+    if bad:
+        raise AssertionError(f"{label}: replayed output differs from eager at seeds {bad}")
+    if len({o.data_ptr() for o in outs}) != len(outs) or torch.equal(outs[2], outs[3]):
+        raise AssertionError(f"{label}: held outputs of consecutive replays share storage or "
+                             "values")
+    row = {"calls": len(seeds), **counts, "launches_per_eager_call": per_call,
+           "fused_istft_run_in_replays": runs["forward"], "bitwise_equal": True}
+    print(f"graph replay {label} " + json.dumps(row))
+    return row
+
+
+def graph_profile(vm: VocoderModel, cond, n: int, calls: int = 5) -> dict:
+    """Device kernels the profiler sees in `calls` replays and in as many
+    eager calls, and a capture made while the profiler runs (a new key)
+    against the eager path."""
+    def kernels(fn):
+        with kernels_run() as runs:
+            fn()
+        return runs["kernels"], runs["forward"]
+
+    for _ in range(2):
+        vm.infer(cond, n_timesteps=n)  # capture, if the previous key was another
+    replayed = kernels(lambda: [vm.infer(cond, n_timesteps=n) for _ in range(calls)])
+    eager = kernels(lambda: [eager_infer(vm, cond, n, 0) for _ in range(calls)])
+    other = cond[..., :-8]
+    with kernels_run():
+        outs = [vm.infer(other, n_timesteps=n, seed=s) for s in (3, 3, 4)]
+    if not all(torch.equal(o, eager_infer(vm, other, n, s)) for o, s in zip(outs, (3, 3, 4))):
+        raise AssertionError("a graph captured under the profiler replays other values")
+    if replayed[1] != calls * 3 * n or replayed[0] < eager[0] or replayed[0] > eager[0] + 3 * calls:
+        raise AssertionError(f"the profiler saw (kernels, fused_istft) {replayed} in {calls} "
+                             f"replays, {eager} in {calls} eager calls")
+    return {"replayed_kernels": replayed[0], "replayed_fused_istft": replayed[1],
+            "eager_kernels": eager[0], "eager_fused_istft": eager[1], "calls": calls}
+
+
+def capture_cycles(vm: VocoderModel, frames=(60, 94, 128), rounds: int = 3) -> dict:
+    """Keys in turn, each called twice (eager, then capture), for `rounds`
+    rounds at batch 16 and 1 step: each output equal to the eager path's,
+    the allocator's reserved bytes after each round, which later rounds
+    must not grow past the first's by an eighth (every capture runs on the
+    model's one capture stream into its one pool), and the host's ms of a
+    capturing call against an eager one."""
+    rng = np.random.RandomState(23)
+    mels = {f: rng.randn(16, 100, f).astype(np.float32) for f in frames}
+    reserved, ms = [], {"eager": [], "capture": []}
+    before = graph_counts()["graph_captures"]
+    for _ in range(rounds):
+        for f, mel in mels.items():
+            for kind in ms:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = vm.infer(mel, n_timesteps=1, seed=f)
+                torch.cuda.synchronize()
+                ms[kind].append((time.perf_counter() - t0) * 1e3)
+                if not torch.equal(out, eager_infer(vm, mel, 1, f)):
+                    raise AssertionError(f"capture cycles: {kind} call at {f} frames differs")
+        reserved.append(torch.cuda.memory_reserved(vm.device))
+    captures = graph_counts()["graph_captures"] - before
+    if captures != rounds * len(frames) or max(reserved[1:]) > reserved[0] * 9 / 8:
+        raise AssertionError(f"capture cycles: {captures} captures, reserved bytes {reserved}")
+    return {"captures": captures, "reserved_bytes_by_round": reserved,
+            "eager_ms_median": statistics.median(ms["eager"]),
+            "capture_ms_median": statistics.median(ms["capture"])}
+
+
+def graph_replay(card: str) -> int:
+    """22: `VocoderModel.infer`'s CUDA graphs on the card against the eager
+    path, bit for bit (`check_graph_replays`): mel_44k_128band_512x_base at
+    1 step on the stream shape, mel_24k_base at 1 and 4 steps at batch 16,
+    in bf16, and token_24k_base; the profiler's kernels in replays; a 30 s
+    stream through `streaming_infer` against the eager stream; the host's
+    ms a chunk, eager and replayed. Returns the fused iSTFT kernels the
+    profiler saw run over the stream."""
+    rng = np.random.RandomState(22)
+    model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
+    chunk = rng.randn(1, 128, 148).astype(np.float32)
+    rows = {"mel_44k_stream_chunk_1_step": check_graph_replays(
+        "mel_44k_128band_512x_base (1, 128, 148) 1 step", model44, chunk, 1)}
+    mel = rng.randn(16, 100, 94).astype(np.float32)
+    for n in (1, 4):
+        rows[f"mel_24k_base_b16_{n}_step"] = check_graph_replays(
+            f"mel_24k_base (16, 100, 94) {n} step", get_model("mel_24k_base", device="cuda",
+                                                              seed=0), mel, n)
+    rows["mel_24k_base_bf16_b16_1_step"] = check_graph_replays(
+        "mel_24k_base bf16 (16, 100, 94) 1 step", bf16_vocoder("cuda"), mel, 1)
+    rows["token_24k_base_b16_1_step"] = check_graph_replays(
+        "token_24k_base (16, 94) 1 step", get_model("token_24k_base", device="cuda", seed=0),
+        rng.randint(0, 1024, (16, 94)), 1)
+    rows["profile_mel_44k_chunk"] = graph_profile(model44, chunk, 1)
+    rows["capture_cycles_mel_24k_base"] = capture_cycles(get_model("mel_24k_base", device="cuda",
+                                                                   seed=0))
+
+    stream = rng.randn(128, int(30 * 44100 / 512)).astype(np.float32)
+    layers, hop = max(model44.config.num_layers), model44.config.mel_hop_length
+    model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
+    tracing.drain()
+    with kernels_run() as runs:
+        ours = infer_dir.streaming_infer(infer_dir.make_synth(model44, 1, 5), stream, 100, layers,
+                                         hop)
+    launches, counted, counts = runs["forward"], n_istft(), graph_counts()
+    theirs = infer_dir.streaming_infer(
+        lambda seg: eager_infer(model44, seg, 1, 5).cpu().numpy(), stream, 100, layers, hop)
+    chunks = -(-stream.shape[-1] // 100)
+    # the host launches the kernel in the eager chunk and the capture's warm-up
+    if not np.array_equal(ours, theirs) or launches != 3 * chunks or counted != 3 * 2 or counts != {
+            "eager_calls": 1, "graph_captures": 1, "graph_replays": chunks - 2}:
+        raise AssertionError(f"30 s stream: equal {np.array_equal(ours, theirs)}, {launches} "
+                             f"run on the device, {counted} counted, {counts} over {chunks} "
+                             "chunks")
+    rows["stream_30s"] = {"chunks": chunks, **counts, "fused_istft_run": launches,
+                          "fused_istft_counted": counted, "bitwise_equal": True}
+    with untraced():
+        replay_ms = time_calls(lambda: model44.infer(chunk, n_timesteps=1).cpu())
+        eager_ms = time_calls(lambda: eager_infer(model44, chunk, 1, 0).cpu())
+    rows["host_ms_per_chunk"] = {"replayed_median": statistics.median(replay_ms),
+                                 "eager_median": statistics.median(eager_ms),
+                                 "replayed_min": min(replay_ms), "eager_min": min(eager_ms)}
+    print("graph replay " + json.dumps({**rows, "card": card}))
     return launches
 
 
@@ -1212,7 +1414,8 @@ def bf16_trainer(card: str, root: Path) -> dict:
 def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
     """bin/infer over a manifest of corpus files with the windowed average
     of phase 10's epochs, and bin/infer_dir on a directory of them, whole and
-    in 50-frame chunks; returns each run's launches."""
+    in 50-frame chunks; returns each run's launches (bin/infer_dir's: the
+    kernels the profiler saw run)."""
     recs = read_recording_manifest(root / "valid" / "recordings.jsonl.gz")[:6]
     cli = root / "cli"
     (cli / "wavs").mkdir(parents=True, exist_ok=True)
@@ -1234,10 +1437,12 @@ def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
         shutil.copy(rec.path, cli / "wavs")
     runs = {}
     for name, extra in (("infer_dir", []), ("infer_dir_chunked", ["--chunk-size", "50"])):
-        tracing.drain()
-        runs[name] = infer_dir.main(["--checkpoint", str(averaged), "--input-dir", str(cli / "wavs"),
-                                     "--output-dir", str(cli / name), "--device", "cuda", *extra])
-        launches[name] = n_istft()
+        # equal-length files and chunks repeat a key, which replays a CUDA graph
+        with kernels_run() as ran:
+            runs[name] = infer_dir.main(["--checkpoint", str(averaged), "--input-dir",
+                                         str(cli / "wavs"), "--output-dir", str(cli / name),
+                                         "--device", "cuda", *extra])
+        launches[name] = ran["forward"]
     frames = 48000 // 256 + 1  # 2 s files
     chunks = -(-frames // 50)
     if launches["infer_dir"] != 3 * 4 or launches["infer_dir_chunked"] != 3 * 4 * chunks:
@@ -2144,10 +2349,10 @@ def token_serving(card: str, codebook: Path) -> dict:
     one_step = {}
     for n in (1, 2, 4):
         row = {"n_timesteps": n, "batch": 16, "frames": 94, "audio_s": audio_s, "card": card}
-        for name, fn in (("mel_24k_base", lambda: mel_model.infer(mel, n_timesteps=n)),
-                         ("token_24k_base", lambda: model.infer(ids, n_timesteps=n)),
-                         ("mel_24k_base_again", lambda: mel_model.infer(mel, n_timesteps=n)),
-                         ("token_24k_base_again", lambda: model.infer(ids, n_timesteps=n))):
+        for name, fn in (("mel_24k_base", lambda: eager_infer(mel_model, mel, n, 0)),
+                         ("token_24k_base", lambda: eager_infer(model, ids, n, 0)),
+                         ("mel_24k_base_again", lambda: eager_infer(mel_model, mel, n, 0)),
+                         ("token_24k_base_again", lambda: eager_infer(model, ids, n, 0))):
             ms = time_calls(fn)
             med = statistics.median(ms)
             row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
@@ -2307,7 +2512,8 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
     (.npy, from the codebook on the card) with `--tokens true`, whole and in
     50-frame chunks; checked as phase 14 checks the mel CLIs, and each token
     run against the wav run that tokenized the same audio. Returns each
-    run's launches (forward, adjoint)."""
+    run's launches (forward, adjoint; bin/infer_dir's: the kernels the
+    profiler saw run)."""
     cli, out = root / "cli", root / "tokens" / "cli"
     recs = read_recording_manifest(cli / "recordings.jsonl.gz")
     common = ["--model-name", "token_24k_base", "--checkpoint", str(averaged), "--device", "cuda"]
@@ -2335,9 +2541,11 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
                         ("tokens", ["--input-dir", str(out / "ids"), "--tokens", "true"])):
         for chunked, extra in ((False, []), (True, ["--chunk-size", "50"])):
             key = f"infer_dir_{name}" + ("_chunked" if chunked else "")
-            tracing.drain()
-            runs[key] = infer_dir.main([*common, *flags, "--output-dir", str(out / key), *extra])
-            launches[key] = (n_istft(), n_adjoint())
+            # equal-length files and chunks repeat a key, which replays a CUDA graph
+            with kernels_run() as ran:
+                runs[key] = infer_dir.main([*common, *flags, "--output-dir", str(out / key),
+                                            *extra])
+            launches[key] = (ran["forward"], ran["adjoint"])
     frames = 48000 // 256 + 1  # 2 s files
     chunks = -(-frames // 50)
     if any(launches[k] != (3 * 4 * (chunks if k.endswith("chunked") else 1), 0) for k in runs):
@@ -2944,6 +3152,8 @@ def main() -> int:
     clock.done("11_bf16_serving")
     card44_launches = card_vs_cpu_44k(card)
     clock.done("12_card_vs_cpu_44k")
+    graph_launches = graph_replay(card)
+    clock.done("22_graph_replay")
     grads_card_vs_cpu(card, float64="report")
     clock.done("9_grads_card_vs_cpu_and_float64")
     discriminators_card_vs_cpu(card)
@@ -3019,6 +3229,7 @@ def main() -> int:
         "launches_by_path": {
             "serving_f32_1_2_4_steps": launches, "serving_bf16_1_2_4_steps": bf16_launches,
             "serving_44k_1_step": launches44, "card_vs_cpu_44k_1_step": card44_launches,
+            "graph_replayed_stream_44k_30s": graph_launches,
             "training_f32_32_steps": train_launches["forward"],
             "training_bf16_8_steps": bf16_train_launches["forward"],
             **{f"cli_{k}": v for k, v in cli_launches.items()},

@@ -11,9 +11,11 @@ directory, whole or streamed in chunks; the counterpart of
 The chunked mode keeps the reference's receptive-field halo (3 frames per
 layer of the k=7 convs on each side) and pads every chunk to one frame count
 by repeating its last frame (mel column or token id), as the JAX package
-does so that its jitted synthesis compiles once. Eager PyTorch would not
-recompile, but the fixed shape keeps every chunk's noise and edge padding,
-and so the output, the same as the JAX package's.
+does so that its jitted synthesis compiles once. The fixed shape keeps every
+chunk's noise and edge padding, and so the output, the same as the JAX
+package's; and since every chunk repeats the previous chunk's call, on the
+card one CUDA graph serves the whole stream from its second chunk on
+(`api.GraphRule`).
 `--device` defaults to cuda; the tests pass cpu.
 """
 

@@ -416,11 +416,16 @@ class BaseAudioGenerator(nn.Module):
         """Waveforms (B, frames * cond_hop_length) from the conditioning
         (frames on its last axis); x0 is drawn from `generator` (on cond's
         device)."""
-        noise = torch.randn(
+        return self.infer_from_noise(self.draw_x0(cond, generator), cond, audio_lens, n_timesteps,
+                                     clamp_pred)
+
+    def draw_x0(self, cond: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """`infer`'s x0 for the conditioning: (B, frames * cond_hop_length)
+        float32 draws of N(0, init_noise_scale^2) from `generator`."""
+        return torch.randn(
             cond.shape[0], cond.shape[-1] * self.cond_hop_length,
             generator=generator, device=cond.device, dtype=torch.float32,
         ) * self.init_noise_scale
-        return self.infer_from_noise(noise, cond, audio_lens, n_timesteps, clamp_pred)
 
     def infer_from_noise(
         self,

@@ -29,7 +29,12 @@ import torch
 
 from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.ops import cuda_build
-from flow2gan_tpu_torch.ops.stft import const_tensor, envelope, hann_window_np
+from flow2gan_tpu_torch.ops.stft import (
+    const_tensor,
+    device_constant_cache,
+    envelope,
+    hann_window_np,
+)
 from flow2gan_tpu_torch.ops.stft import istft as istft_plain
 from flow2gan_tpu_torch.ops.stft import istft_adjoint as istft_adjoint_plain
 
@@ -77,7 +82,7 @@ def kernel_tables_np(n_fft: int):
     return twiddles, window
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant_cache(maxsize=32)
 def _kernel_tables(n_fft: int, device: torch.device) -> torch.Tensor:
     """The two tables back to back on `device`: 2 * n_fft float32."""
     return const_tensor(np.concatenate([t.ravel() for t in kernel_tables_np(n_fft)]), device)

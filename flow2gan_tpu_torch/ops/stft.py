@@ -14,8 +14,9 @@ against.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -92,6 +93,43 @@ def _istft_envelope(n_frames: int, n_fft: int, hop: int) -> np.ndarray:
     return env.astype(np.float32)
 
 
+_holders: List[list] = []  # the lists of the `holding` contexts open in the process
+
+
+def device_constant_cache(maxsize: int):
+    """`functools.lru_cache(maxsize=maxsize)` for a function that returns
+    constants on a device, which also appends each result to the list of every
+    open `holding` context. A CUDA graph reads its constants by address, so a
+    graph that captured a read keeps the constant alive after the cache has
+    evicted it and the allocator would hand its memory to another tensor."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def get(*args):
+            out = cached(*args)
+            for held in _holders:
+                held.append(out)
+            return out
+
+        get.cache_clear = cached.cache_clear
+        return get
+
+    return wrap
+
+
+@contextlib.contextmanager
+def holding():
+    """A list that receives every cached device constant looked up while the
+    context is open, on any thread."""
+    held: list = []
+    _holders.append(held)
+    try:
+        yield held
+    finally:
+        _holders.remove(held)
+
+
 def const_tensor(array: np.ndarray, device: torch.device) -> torch.Tensor:
     """A cached constant on `device`. It is made outside inference mode even
     when the first call comes from inside it, so that later calls with
@@ -100,19 +138,19 @@ def const_tensor(array: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(array).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant_cache(maxsize=32)
 def _stft_consts(n_fft: int, device: torch.device):
     C, S = _rdft_matrices(n_fft)
     return tuple(const_tensor(a, device) for a in (hann_window_np(n_fft), C, S))
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant_cache(maxsize=32)
 def _istft_consts(n_fft: int, device: torch.device):
     A, B = _irdft_matrices(n_fft)
     return tuple(const_tensor(a, device) for a in (hann_window_np(n_fft), A, B))
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant_cache(maxsize=64)
 def envelope(n_frames: int, n_fft: int, hop: int, device: torch.device) -> torch.Tensor:
     """`_istft_envelope` as a tensor on `device`."""
     return const_tensor(_istft_envelope(n_frames, n_fft, hop), device)

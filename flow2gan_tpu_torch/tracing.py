@@ -21,17 +21,26 @@ While it is on:
   into the device ms of the stream's work between them, waits included;
 - `count(name, n)` adds to a counter.
 
+A count made on a thread inside `uncounted()` is dropped: a CUDA graph's
+capture launches nothing, and its replays launch nothing from the host, so
+neither adds to the counters.
+
 `drain()` returns the finished spans and the counters, and clears both;
 nothing is written out here.
 
 The spans: `api.infer` (root: one serving request), `cond_encoder`,
-`solve.step` (index: the Euler step), `branch` (index: the estimator);
+`solve.step` (index: the Euler step), `branch` (index: the estimator),
+`infer.graph_capture` and `infer.graph_replay` (a call's CUDA graph, inside
+`api.infer`: a replay passes no `cond_encoder`, `solve.step` or `branch`);
 `fm.step` (root: one FM training step), `fm.frontend`, `fm.draws`,
 `fm.forward`, `fm.backward`, `dist.grads`; `optim.step` (device);
 `dist.all_reduce` (device); `loader.assemble` (on the loader's pool
 threads), `loader.wait`. The counters: `collectives` and
 `collective_bytes` (each all-reduce of `parallel/dist.py` and its bytes),
-`istft.launches` and `istft.adjoint_launches` (the fused iSTFT kernels).
+`istft.launches` and `istft.adjoint_launches` (the fused iSTFT kernels the
+host launched: a graph replay adds none, and the kernels it runs are read
+from the profiler), `infer.graph_captures`, `infer.graph_replays` and
+`infer.eager_calls` (the way each `api.VocoderModel.infer` call ran).
 """
 
 from __future__ import annotations
@@ -100,9 +109,20 @@ def span(name: str, index: Optional[int] = None, device: Optional[torch.device] 
 
 
 def count(name: str, n: int = 1) -> None:
-    if _on:
+    if _on and not getattr(_local, "uncounted", False):
         with _lock:
             _counters[name] = _counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Drops the counts made on this thread while the context is open."""
+    outer = getattr(_local, "uncounted", False)
+    _local.uncounted = True
+    try:
+        yield
+    finally:
+        _local.uncounted = outer
 
 
 def counter(name: str) -> int:
