@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.ops.stft import stft
 
 Judgement = Tuple[List[torch.Tensor], List[List[torch.Tensor]]]  # (scores, fmaps), one each
@@ -192,8 +193,13 @@ class Discriminators(nn.Module):
         self.discriminator_1 = MultiResolutionDiscriminator(fft_sizes)
 
     def judge(self, x: torch.Tensor) -> Tuple[Judgement, Judgement]:
-        """(MPD, MRD) judgements of one signal."""
-        return self.discriminator_0.judge(x), self.discriminator_1.judge(x)
+        """(MPD, MRD) judgements of one signal, each in a `gan.judge` span
+        (index 0 and 1) with device time."""
+        out = []
+        for i, d in enumerate((self.discriminator_0, self.discriminator_1)):
+            with tracing.span("gan.judge", i, device=x.device):
+                out.append(d.judge(x))
+        return out[0], out[1]
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         return self.discriminator_0(y, y_hat), self.discriminator_1(y, y_hat)

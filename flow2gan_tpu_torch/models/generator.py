@@ -34,6 +34,7 @@ ranks by the caller), its share of the global loss.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence
 
@@ -95,6 +96,13 @@ def branch_dropout_weight(branch_idx: torch.Tensor, do_drop: torch.Tensor,
     mask[rows, branch_idx] = 0.0
     mask = mask * (num_branches / (num_branches - 1))
     return torch.where(do_drop, mask, torch.ones_like(mask))
+
+
+@contextlib.contextmanager
+def _recomputing():
+    """Around `checkpoint`'s recompute of an Euler step in backward."""
+    tracing.count("solve.recomputed_steps")
+    yield
 
 
 class BaseAudioGenerator(nn.Module):
@@ -345,15 +353,16 @@ class BaseAudioGenerator(nn.Module):
         (n_timesteps, n_limiters) gives the train form, row s at step s;
         None is the eval form. `remat` recomputes each step's forward in
         backward (`torch.utils.checkpoint`) instead of keeping its
-        activations."""
+        activations, each recompute counted by `solve.recomputed_steps`."""
         dt = 1.0 / n_timesteps
         x = noise
         for step in range(n_timesteps):
             args = (x, cond, step * dt, dt, audio_lens, None if gates is None else gates[step])
             with tracing.span("solve.step", step):
                 if remat:
-                    x = torch.utils.checkpoint.checkpoint(self._euler_step, *args,
-                                                          use_reentrant=False)
+                    x = torch.utils.checkpoint.checkpoint(
+                        self._euler_step, *args, use_reentrant=False,
+                        context_fn=lambda: (contextlib.nullcontext(), _recomputing()))
                 else:
                     x = self._euler_step(*args)
         if clamp_pred:

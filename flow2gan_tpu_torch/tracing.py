@@ -33,14 +33,22 @@ The spans: `api.infer` (root: one serving request), `cond_encoder`,
 `infer.graph_capture` and `infer.graph_replay` (a call's CUDA graph, inside
 `api.infer`: a replay passes no `cond_encoder`, `solve.step` or `branch`);
 `fm.step` (root: one FM training step), `fm.frontend`, `fm.draws`,
-`fm.forward`, `fm.backward`, `dist.grads`; `optim.step` (device);
+`fm.forward`, `fm.backward`, `dist.grads`; `gan.d_step` and `gan.g_step`
+(root, device: one GAN fine-tuning step, `training/gan_step.py`),
+`gan.rollout` (the generator's solve inside a GAN step), `gan.judge`
+(device; `models/discriminators.Discriminators.judge`, index 0 the MPD, 1
+the MRD), `gan.losses`, `gan.backward` (device); `optim.step` (device);
 `dist.all_reduce` (device); `loader.assemble` (on the loader's pool
-threads), `loader.wait`. The counters: `collectives` and
-`collective_bytes` (each all-reduce of `parallel/dist.py` and its bytes),
-`istft.launches` and `istft.adjoint_launches` (the fused iSTFT kernels the
-host launched: a graph replay adds none, and the kernels it runs are read
-from the profiler), `infer.graph_captures`, `infer.graph_replays` and
-`infer.eager_calls` (the way each `api.VocoderModel.infer` call ran).
+threads), `loader.wait`. The
+counters: `collectives` and `collective_bytes` (each all-reduce of
+`parallel/dist.py` and its bytes), `istft.launches` and
+`istft.adjoint_launches` (the fused iSTFT kernels the host launched: a
+graph replay adds none, and the kernels it runs are read from the
+profiler), `infer.graph_captures`, `infer.graph_replays` and
+`infer.eager_calls` (the way each `api.VocoderModel.infer` call ran),
+`gan.d_steps` and `gan.g_steps` (GAN steps taken) and
+`solve.recomputed_steps` (Euler steps that `solve(..., remat=True)`
+recomputes in backward).
 """
 
 from __future__ import annotations

@@ -19,6 +19,13 @@ from the device: their metrics are device tensors. The JAX package's scanned
 rollout exists only for the TPU compiler and is not ported; `remat_rollout`
 recomputes each Euler step in backward instead of keeping its activations.
 
+Spans (`tracing`, off by default): each training step is a root span with
+device time, `gan.d_step` or `gan.g_step`, counted by `gan.d_steps` and
+`gan.g_steps`; inside it `gan.rollout` (the generator's solve, the eval form
+in D and the train form in G), `gan.judge` (`Discriminators.judge`'s,
+once per signal judged), `gan.losses` (the loss terms) and `gan.backward`
+(device).
+
 In a multi-process run (`parallel.dist`) each rank holds its rows of the
 global batch and the draws are the global batch's rows (`draw_rollout`'s
 shard). Every loss term is a mean over equal-size per-row blocks, so a
@@ -33,6 +40,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.models.discriminators import Discriminators
 from flow2gan_tpu_torch.models.gan import (
     discriminator_loss,
@@ -76,17 +84,20 @@ def make_gan_loss_fns(
     objective in the form `draws` gives (train form with gates)."""
 
     def fake_audio(batch: Batch, cond: torch.Tensor, draws: RolloutDraws, remat: bool):
-        fake = generator.rollout(cond, draws, batch["audio_lens"], n_timesteps, remat=remat)
+        with tracing.span("gan.rollout"):
+            fake = generator.rollout(cond, draws, batch["audio_lens"], n_timesteps, remat=remat)
         return fake[..., : batch["audio"].shape[-1]]
 
     def d_loss_fn(batch: Batch, draws: RolloutDraws) -> Tuple[torch.Tensor, Metrics]:
         audio = batch["audio"]
         with torch.no_grad():
             fake = fake_audio(batch, cond_fn(audio), RolloutDraws(draws.x0), remat=False)
-        (real_mp, real_mr), (fake_mp, fake_mr) = discriminators.judge(audio), discriminators.judge(fake)
-        disc_mp = discriminator_loss(real_mp[0], fake_mp[0])
-        disc_mr = discriminator_loss(real_mr[0], fake_mr[0])
-        loss = scales.disc_mp * disc_mp + scales.disc_mr * disc_mr
+        real_mp, real_mr = discriminators.judge(audio)
+        fake_mp, fake_mr = discriminators.judge(fake)
+        with tracing.span("gan.losses"):
+            disc_mp = discriminator_loss(real_mp[0], fake_mp[0])
+            disc_mr = discriminator_loss(real_mr[0], fake_mr[0])
+            loss = scales.disc_mp * disc_mp + scales.disc_mr * disc_mr
         return loss, {"loss_d": loss, "disc_loss_mp": disc_mp, "disc_loss_mr": disc_mr}
 
     def g_loss_fn(batch: Batch, draws: RolloutDraws) -> Tuple[torch.Tensor, Metrics]:
@@ -96,17 +107,18 @@ def make_gan_loss_fns(
             real_mp, real_mr = discriminators.judge(audio)
         fake = fake_audio(batch, cond, draws, remat=remat_rollout)
         fake_mp, fake_mr = discriminators.judge(fake)
-        metrics = {
-            "gen_loss_mp": generator_loss(fake_mp[0]),
-            "gen_loss_mr": generator_loss(fake_mr[0]),
-            "feat_map_loss_mp": feature_matching_loss(real_mp[1], fake_mp[1]),
-            "feat_map_loss_mr": feature_matching_loss(real_mr[1], fake_mr[1]),
-            "mel_recon_loss": mel_recon_loss(audio, fake, mel_recon_fns),
-        }
-        loss = (scales.gen_mp * metrics["gen_loss_mp"] + scales.gen_mr * metrics["gen_loss_mr"]
-                + scales.fmap_mp * metrics["feat_map_loss_mp"]
-                + scales.fmap_mr * metrics["feat_map_loss_mr"]
-                + scales.mel_recon * metrics["mel_recon_loss"])
+        with tracing.span("gan.losses"):
+            metrics = {
+                "gen_loss_mp": generator_loss(fake_mp[0]),
+                "gen_loss_mr": generator_loss(fake_mr[0]),
+                "feat_map_loss_mp": feature_matching_loss(real_mp[1], fake_mp[1]),
+                "feat_map_loss_mr": feature_matching_loss(real_mr[1], fake_mr[1]),
+                "mel_recon_loss": mel_recon_loss(audio, fake, mel_recon_fns),
+            }
+            loss = (scales.gen_mp * metrics["gen_loss_mp"] + scales.gen_mr * metrics["gen_loss_mr"]
+                    + scales.fmap_mp * metrics["feat_map_loss_mp"]
+                    + scales.fmap_mr * metrics["feat_map_loss_mr"]
+                    + scales.mel_recon * metrics["mel_recon_loss"])
         return loss, {"loss_g": loss, **metrics}
 
     return d_loss_fn, g_loss_fn
@@ -160,29 +172,28 @@ def make_gan_steps(
     params_g = [p for g in optimizer_g.groups for p in g.params]
     params_d = [p for g in optimizer_d.groups for p in g.params]
 
-    def d_step(batch: Batch, draws: RolloutDraws) -> Metrics:
-        loss, metrics = d_loss_fn(batch, draws)
-        optimizer_d.zero_grad()
-        loss.backward(inputs=params_d)
-        metrics = _global(metrics, params_d)
-        lr = lr_d_fn(optimizer_d.step_count)
-        optimizer_d.step(lr)
-        if not keep_grads:
-            optimizer_d.zero_grad()
-        return {**metrics, "lr_d": lr, "clip_scale": optimizer_d.clip_scale,
+    def train_step(side: str, loss_fn, optimizer: ScaledAdam, params, lr_fn, batch: Batch,
+                   draws: RolloutDraws) -> Metrics:
+        device = batch["audio"].device
+        with tracing.span(f"gan.{side}_step", root=True, device=device):
+            tracing.count(f"gan.{side}_steps")
+            loss, metrics = loss_fn(batch, draws)
+            optimizer.zero_grad()
+            with tracing.span("gan.backward", device=device):
+                loss.backward(inputs=params)
+            metrics = _global(metrics, params)
+            lr = lr_fn(optimizer.step_count)
+            optimizer.step(lr)
+            if not keep_grads:
+                optimizer.zero_grad()
+        return {**metrics, f"lr_{side}": lr, "clip_scale": optimizer.clip_scale,
                 "samples": batch["audio"].shape[0]}
 
+    def d_step(batch: Batch, draws: RolloutDraws) -> Metrics:
+        return train_step("d", d_loss_fn, optimizer_d, params_d, lr_d_fn, batch, draws)
+
     def g_step(batch: Batch, draws: RolloutDraws) -> Metrics:
-        loss, metrics = g_loss_fn(batch, draws)
-        optimizer_g.zero_grad()
-        loss.backward(inputs=params_g)
-        metrics = _global(metrics, params_g)
-        lr = lr_g_fn(optimizer_g.step_count)
-        optimizer_g.step(lr)
-        if not keep_grads:
-            optimizer_g.zero_grad()
-        return {**metrics, "lr_g": lr, "clip_scale": optimizer_g.clip_scale,
-                "samples": batch["audio"].shape[0]}
+        return train_step("g", g_loss_fn, optimizer_g, params_g, lr_g_fn, batch, draws)
 
     @torch.no_grad()
     def eval_step(batch: Batch, draws: RolloutDraws) -> Metrics:
