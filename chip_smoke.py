@@ -180,7 +180,8 @@ its wall time (phase 18 one such line for each of its parts):
    and `bash flow2gan_tpu_torch/recipes/infer_dir.sh` in its three modes
    (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
    exported generator, each output checked;
-21. the `kernels` JSON line (each kernel's launches on every path, the
+21. the `kernels` JSON line (the fused iSTFT, its adjoint and phase 23's
+   three ConvNeXt chain kernels; each kernel's launches on every path, the
    data-parallel ones per rank; on a path where `infer` replays CUDA graphs,
    the kernels the profiler saw the device run, since a replay launches
    nothing from the host and so adds nothing to `istft.launches`), then the
@@ -199,7 +200,22 @@ its wall time (phase 18 one such line for each of its parts):
    rounds, each output equal to eager, the allocator's reserved bytes not
    growing past the first round's (one capture stream and pool a model),
    the ms of a capturing call beside an eager one; the host's ms a chunk,
-   replayed and eager.
+   replayed and eager;
+23. (run after phase 22) the ConvNeXt blocks' eval-form chain
+   (`flow2gan_tpu_torch/csrc/convnext_chain.cu`): its build and ptxas'
+   report; its three kernels against their plain versions at the main
+   path's block shapes (bulk serving at batch 16, 101 and 872 mel frames:
+   the three branches and the cond encoder; the stream's 148-frame chunk at
+   batch 1) and at edges (a ragged mask, fewer frames than taps, one
+   frame, a cond longer than needed, widths 48, 64 and 1024), each with its
+   ms, its plain version's and its byte bound at 3.35 TB/s; one 768-channel
+   block's eval form against the eager chain, the kernels one call runs
+   (the chain's three beside the GEMMs: no bias pass) and both forms' ms;
+   on a fresh model's first call 100 `convnext.fused_blocks` and no
+   `convnext.eager_blocks` (mel_24k_base, 4 steps), 28 on the 44.1 kHz
+   stream chunk, and 28 eager in bf16; each call against the eager chain;
+   a bulk call's device time by family (no depthwise conv left), bulk
+   calls and replayed stream chunks timed in turns against the eager chain.
 """
 
 from __future__ import annotations
@@ -250,7 +266,10 @@ from flow2gan_tpu_torch.models import FMDraws, RolloutDraws, build_generator, ge
 from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
 from flow2gan_tpu_torch.models.gan import discriminator_loss, feature_matching_loss, generator_loss
 from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
+from flow2gan_tpu_torch.models import convnext
+from flow2gan_tpu_torch.models.convnext import ConvNeXtBlock
 from flow2gan_tpu_torch.models.generator import branch_dropout_weight
+from flow2gan_tpu_torch.ops import convnext_chain as chain
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
@@ -262,7 +281,7 @@ from flow2gan_tpu_torch.training import checkpoint as ckpt
 from flow2gan_tpu_torch.training.gan_step import make_gan_loss_fns, make_gan_steps
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 from flow2gan_tpu_torch.training.train_step import fm_train_step, step_generator
-from flow2gan_tpu_torch.utils import disable_tf32
+from flow2gan_tpu_torch.utils import disable_tf32, make_valid_mask
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth, and float32 FMA rate outside the
 # tensor cores (the kernel accumulates in IEEE float32 on the CUDA cores)
@@ -347,6 +366,34 @@ DIST_LENS = [DIST_LENGTH] * 12 + [33000, 30000, 27000, 24000]
 RANK_SHAPES = [(n, h, DIST_BATCH // DIST_WORLD, t, length)
                for n, h, _, t, length in TRAIN_SHAPES + GAN_SHAPES]
 TRAIN_STEPS = 32  # 2 epochs of a 256-recording corpus at batch 16
+CHAIN_TOL = 1e-5  # the ConvNeXt chain's first kernel vs plain, relative to max|plain|
+BLOCK_TOL = 1e-5  # a block's eval form, kernels vs eager chain, relative to max|eager|
+# (label, batch, frames, channels, f, conditioned): the ConvNeXt blocks of
+# the main path. Bulk serving, mel_24k_base at batch 16 and 101 and 872 mel
+# frames: the three branches (cond at 1/f of their frame rate) and the cond
+# encoder; the stream's 148-frame chunk of mel_44k_128band_512x_base at
+# batch 1, the same
+CHAIN_SHAPES = [
+    *[(f"bulk_{m}_branch_{i}", 16, m * f + 1, ch, f, True)
+      for m in (101, 872) for i, (ch, f) in enumerate(((768, 1), (512, 2), (384, 4)))],
+    ("bulk_101_cond_encoder", 16, 101, 512, 1, False),
+    ("bulk_872_cond_encoder", 16, 872, 512, 1, False),
+    *[(f"stream_branch_{i}", 1, 148 * f + 1, ch, f, True)
+      for i, (ch, f) in enumerate(((768, 1), (512, 2), (384, 4)))],
+    ("stream_cond_encoder", 1, 148, 512, 1, False),
+]
+# (label, batch, frames, channels, f, conditioned, ragged): edges, untimed;
+# ragged gives the rows masks of other lengths
+CHAIN_EDGES = [
+    ("ragged_mask", 5, 203, 512, 2, True, True),
+    ("frames_below_taps", 3, 4, 768, 1, True, False),
+    ("one_frame", 2, 1, 384, 4, True, True),
+    ("odd_frames", 3, 1001, 384, 4, True, False),
+    ("tiny_width_64", 2, 129, 64, 2, True, True),
+    ("tiny_width_48", 2, 257, 48, 4, True, False),
+    ("tiny_width_48_unconditioned", 2, 31, 48, 1, False, True),
+    ("width_1024", 2, 97, 1024, 1, True, False),
+]
 TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
               "--keep-last-k", "1", "--average-period", "4", "--log-interval", "8",
@@ -1213,6 +1260,275 @@ def card_vs_cpu_44k(card: str) -> int:
     if launches != 3 or not rel <= CARD_VS_CPU_TOL:
         raise AssertionError(f"44.1 kHz: card and CPU disagree ({rel}) or {launches} launches")
     return launches
+
+
+CHAIN_COUNTERS = ("fused_blocks", "eager_blocks", "norm_film_launches", "prelu_launches",
+                  "residual_launches")
+
+
+def chain_counts() -> dict:
+    """The ConvNeXt chain's counters since the last `tracing.drain()`."""
+    return {k: tracing.counter(f"convnext.{k}") for k in CHAIN_COUNTERS}
+
+
+@contextlib.contextmanager
+def eager_chain():
+    """Every ConvNeXt block takes the eager chain, as before the kernels."""
+    taken = convnext.takes_chain
+    convnext.takes_chain = lambda *args: False
+    try:
+        yield
+    finally:
+        convnext.takes_chain = taken
+
+
+def chain_bytes(batch, frames, channels, f, conditioned, masked=False) -> dict:
+    """The least bytes each chain kernel moves: every input read once and
+    every output written once (the depthwise conv's halo rows not again)."""
+    n = batch * frames * channels
+    norm = 2 * n + channels * 10 + 1  # x in, y out; the 7 taps, three biases, the scale
+    if conditioned:
+        norm += batch * -(-frames // f) * channels + batch * channels
+    if masked:
+        norm += batch * frames
+    return {"norm_film": 4 * norm, "prelu": 4 * (6 * n + 3 * channels),
+            "residual": 4 * (3 * n + 2 * channels)}
+
+
+def check_chain_shape(label, batch, frames, channels, f, conditioned, ragged=False,
+                      extra_rows=0, timed=True) -> dict:
+    """The three ConvNeXt chain kernels against their plain versions on the
+    card at one shape: `convnext_norm_film` within CHAIN_TOL (the taps and
+    the mean are summed in another order), `prelu_inplace` and
+    `scaled_residual` (with a scale and a bias, a scale, neither) bit for
+    bit; with `timed`
+    each kernel's and plain version's ms and the byte bound."""
+    gen = torch.Generator(device="cuda").manual_seed(batch * 7919 + frames * 31 + channels)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    mask = None
+    if ragged:
+        lens = torch.randint(1, frames + 1, (batch,), generator=gen, device="cuda")
+        lens[0] = frames
+        mask = make_valid_mask(lens, frames)[..., None]
+    c = te = None
+    if conditioned:
+        c, te = rnd(batch, -(-frames // f) + extra_rows, channels), rnd(batch, channels, scale=0.3)
+    x = rnd(batch, frames, channels)
+    args = (x, mask, rnd(channels, 1, 7, scale=0.3), rnd(channels, scale=0.1),
+            rnd(channels, scale=0.1), torch.tensor(0.4, device="cuda"), c, te, f)
+    ref = chain.norm_film_plain(*args)
+    out = chain.norm_film(*args)
+    hidden, alpha = rnd(batch, frames, 3 * channels), 0.25 + rnd(3 * channels, scale=0.05)
+    h, res, scale = rnd(batch, frames, channels), rnd(batch, frames, channels), 0.5 + rnd(
+        channels, scale=0.1).abs()
+    bias = rnd(channels, scale=0.1)
+    prelu_equal = torch.equal(chain.prelu_(hidden.clone(), alpha), chain.prelu_plain(hidden, alpha))
+    residual_equal = all(
+        torch.equal(chain.scaled_residual_(h.clone(), res, s, b),
+                    chain.scaled_residual_plain(h, res, s, b))
+        for s, b in ((scale, bias), (scale, None), (None, None)))
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    rows, per_warp = chain.norm_film_plan(batch, frames, torch.cuda.get_device_properties(0)
+                                          .multi_processor_count)
+    row = dict(label=label, batch=batch, frames=frames, channels=channels, f=f,
+               conditioned=conditioned, ragged=ragged, rows_per_tile=rows,
+               rows_per_warp=per_warp, blocks=batch * -(-frames // rows),
+               norm_film_max_rel_err=err, prelu_bitwise=prelu_equal,
+               residual_bitwise=residual_equal)
+    if (not out.is_contiguous() or not torch.isfinite(out).all() or not err <= CHAIN_TOL
+            or not prelu_equal or not residual_equal):
+        raise AssertionError(f"ConvNeXt chain kernels disagree with their plain versions: {row}")
+    if timed:
+        fns = {
+            "norm_film": lambda: chain.norm_film(*args),
+            "norm_film_plain": lambda: chain.norm_film_plain(*args),
+            "prelu": lambda: chain.prelu_(hidden, alpha),
+            "prelu_plain": lambda: chain.prelu_plain(hidden, alpha),
+            "residual": lambda: chain.scaled_residual_(h, res, scale, bias),
+            "residual_plain": lambda: chain.scaled_residual_plain(h, res, scale, bias),
+        }
+        times = {key: [] for key in fns}
+        for key in [*fns, *reversed(fns)]:
+            times[key] += device_ms(fns[key])
+        row.update({f"{key}_ms": statistics.median(v) for key, v in times.items()})
+        for key, nbytes in chain_bytes(batch, frames, channels, f, conditioned).items():
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            row.update({f"{key}_bound_ms": bound, f"{key}_bound_share": bound / row[f"{key}_ms"]})
+    return row
+
+
+def chain_block(card: str) -> dict:
+    """One conditioned mel_24k_base branch-0 block (768 channels) at bulk's
+    batch 16 x 873 frames: its eval form through the kernels against the
+    eager chain (grad enabled) on the card; the kernels three eval-form
+    calls run (the three chain kernels, once a call, and the GEMMs: no bias
+    pass beside the GEMMs); both forms' device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    block = ConvNeXtBlock(768, 2304, 7, conditioned=True, cond_channels=512,
+                          time_embed_channels=512).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
+        block.norm.log_scale.fill_(0.5)
+        block.residual_scale.scale.uniform_(0.5, 1.0, generator=gen)
+    x = torch.randn(16, 873, 768, generator=gen, device="cuda")
+    cond = torch.randn(16, 873, 512, generator=gen, device="cuda")
+    time_embed = torch.randn(16, 512, generator=gen, device="cuda")
+    tracing.drain()
+    with torch.no_grad():
+        fused_out = block(x, cond, time_embed)
+    eager_out = block(x, cond, time_embed).detach()  # grad enabled: the eager chain
+    torch.cuda.synchronize()
+    counts = chain_counts()
+    if counts != {"fused_blocks": 1, "eager_blocks": 1, "norm_film_launches": 1,
+                  "prelu_launches": 1, "residual_launches": 1}:
+        raise AssertionError(f"a no-grad and a grad-enabled block call counted {counts}")
+    err = (fused_out - eager_out).abs().max().item() / eager_out.abs().max().item()
+    # three calls: the profiler has missed the first kernels of a window
+    calls = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            for _ in range(calls):
+                block(x, cond, time_embed)
+        torch.cuda.synchronize()
+    kernels = [(name, count) for _, name, count in device_kernels(prof)]
+    others = [(name[:90], count) for name, count in kernels if _family(name) != "gemm"]
+    with torch.no_grad():
+        fused_ms = device_ms(lambda: block(x, cond, time_embed))
+        with eager_chain():
+            eager_ms = device_ms(lambda: block(x, cond, time_embed))
+    row = {"max_rel_err": err, "calls_profiled": calls, "kernels": sum(c for _, c in kernels),
+           "gemm_kernels": sum(c for name, c in kernels if _family(name) == "gemm"),
+           "other_kernels": others, "fused_ms": statistics.median(fused_ms),
+           "eager_chain_ms": statistics.median(eager_ms), "card": card}
+    print("convnext chain block " + json.dumps(row))
+    if not err <= BLOCK_TOL:
+        raise AssertionError(f"a block's eval form through the kernels is off the eager chain: {row}")
+    ours = ("convnext_norm_film", "prelu_inplace", "scaled_residual")
+    if (not all(any(k in n for k in ours) for n, _ in others)
+            or not all(any(k in n for n, _ in others) for k in ours)
+            or any(c > calls for _, c in others)):
+        raise AssertionError(f"a fused block ran other kernels than the chain's three beside "
+                             f"its GEMMs (a bias pass?): {others}")
+    return row
+
+
+def chain_serving(card: str) -> dict:
+    """The kernels on the serving paths: a fresh model's first (eager) call
+    counts every block as fused (mel_24k_base at 4 steps: 4 cond-encoder
+    blocks and 4 steps x 3 branches x 8, 100; the 44.1 kHz stream chunk at 1
+    step, 28) and none eager, the bf16 build every block eager; the call
+    against the eager chain on the same x0; the device time by family of
+    one bulk call (no depthwise conv left); bulk calls and replayed stream
+    chunks timed in turns, kernels and eager chain."""
+    model = get_model("mel_24k_base", device="cuda", seed=0)
+    mel = torch.from_numpy(np.random.RandomState(5).randn(16, 100, 872).astype(np.float32))
+    model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
+    chunk = torch.from_numpy(np.random.RandomState(6).randn(1, 128, 148).astype(np.float32))
+    rows = {}
+    for label, vm, cond, n, blocks in (("bulk_24k_872_frames_4_steps", model, mel, 4, 100),
+                                       ("stream_44k_chunk_1_step", model44, chunk, 1, 28)):
+        tracing.drain()
+        vm.infer(cond, n_timesteps=n)  # a fresh model's first call runs eager
+        torch.cuda.synchronize()
+        counts = chain_counts()
+        if counts != {"fused_blocks": blocks, "eager_blocks": 0, "norm_film_launches": blocks,
+                      "prelu_launches": blocks, "residual_launches": blocks}:
+            raise AssertionError(f"{label}: counted {counts}, expected {blocks} fused blocks")
+        fused_out = eager_infer(vm, cond, n, 0)
+        with eager_chain():
+            eager_out = eager_infer(vm, cond, n, 0)
+        err = (fused_out - eager_out).abs().max().item() / eager_out.abs().max().item()
+        rel_l2 = ((fused_out - eager_out).norm() / eager_out.norm()).item()
+        if not err <= CARD_VS_CPU_TOL:
+            raise AssertionError(f"{label}: kernels against the eager chain {err}")
+        rows[label] = {**counts, "max_rel_err_vs_eager_chain": err, "rel_l2_vs_eager_chain": rel_l2}
+    tracing.drain()
+    bf16 = bf16_vocoder("cuda")
+    bf16.infer(torch.from_numpy(np.random.RandomState(7).randn(16, 100, 94).astype(np.float32)),
+               n_timesteps=1)
+    torch.cuda.synchronize()
+    counts = chain_counts()
+    if counts["fused_blocks"] or counts["eager_blocks"] != 28:
+        raise AssertionError(f"bf16 serving counted {counts}, expected 28 eager blocks")
+    rows["bf16_1_step"] = counts
+    del bf16
+
+    families, _ = device_families(lambda: eager_infer(model, mel, 4, 0))
+    if "conv_depthwise" in families:
+        raise AssertionError(f"a depthwise conv kernel ran on the fused path: {families}")
+    with eager_chain():
+        eager_families, _ = device_families(lambda: eager_infer(model, mel, 4, 0))
+    rows["bulk_by_family_ms"] = {"kernels": families, "eager_chain": eager_families}
+
+    audio_s = 16 * 872 * 256 / 24000
+    times = {"kernels": [], "eager_chain": []}
+    for key in ("kernels", "eager_chain", "eager_chain", "kernels"):
+        with eager_chain() if key == "eager_chain" else contextlib.nullcontext():
+            times[key] += time_calls(lambda: eager_infer(model, mel, 4, 0), calls=5)
+    rows["bulk_call_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    rows["bulk_xrt"] = {k: audio_s / v * 1e3 for k, v in rows["bulk_call_ms"].items()}
+
+    # replayed chunks: one graph captured through the kernels, one through
+    # the eager chain, each on its own model handle, replayed in turns
+    graphs = {"kernels": VocoderModel(model44.module, model44.config, model44.device),
+              "eager_chain": VocoderModel(model44.module, model44.config, model44.device)}
+    for key, vm in graphs.items():
+        with eager_chain() if key == "eager_chain" else contextlib.nullcontext():
+            for seed in (1, 1, 2):
+                vm.infer(chunk, n_timesteps=1, seed=seed)
+    times = {key: [] for key in graphs}
+    for key in ("kernels", "eager_chain", "eager_chain", "kernels"):
+        times[key] += time_calls(lambda: graphs[key].infer(chunk, n_timesteps=1, seed=3))
+    rows["stream_chunk_replay_ms"] = {k: statistics.median(v) for k, v in times.items()}
+    rows["card"] = card
+    print("convnext chain serving " + json.dumps(rows))
+    return rows
+
+
+def convnext_chain_phase(card: str) -> list:
+    """Phase 23: the ConvNeXt chain kernels built, checked at every shape
+    and timed at the main path's; a block and the serving paths through
+    them. Returns the three kernels' entries of the `kernels` line."""
+    build = cuda_build.build("convnext_chain")
+    print(f"build: {build.path.name} in {build.seconds:.2f} s")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"  ptxas: {line.strip()}")
+    tracing.drain()
+    shapes = []
+    for shape in CHAIN_SHAPES:
+        shapes.append(check_chain_shape(*shape))
+        print("convnext chain shape " + json.dumps(shapes[-1]))
+    for label, batch, frames, channels, f, conditioned, ragged in CHAIN_EDGES:
+        print("convnext chain edge " + json.dumps(check_chain_shape(
+            label, batch, frames, channels, f, conditioned, ragged, extra_rows=2, timed=False)))
+    chain_block(card)
+    serving = chain_serving(card)
+    step = [s for s in shapes if s["label"].startswith("bulk_872_branch")]
+    entries = []
+    for name, key, launches in (("convnext_norm_film", "norm_film", "norm_film_launches"),
+                                ("prelu_inplace", "prelu", "prelu_launches"),
+                                ("scaled_residual", "residual", "residual_launches")):
+        entries.append({
+            "name": name, "route": "cuda", "source": "flow2gan_tpu_torch/csrc/convnext_chain.cu",
+            "replaces": "none (XLA fused the chain on the TPU: flow2gan_tpu/models/convnext.py:52-117)",
+            "launches_by_path": {k: v[launches] for k, v in serving.items()
+                                 if isinstance(v, dict) and launches in v},
+            "ms": sum(s[f"{key}_ms"] for s in step),
+            "plain_ms": sum(s[f"{key}_plain_ms"] for s in step),
+            "bound_ms": sum(s[f"{key}_bound_ms"] for s in step), "bound_by": "bytes",
+            "per": "one block of each branch of mel_24k_base at batch 16, 872 mel frames",
+            "shapes": [{k: v for k, v in s.items() if k.startswith((key, "label"))}
+                       for s in shapes],
+        })
+    return entries
 
 
 def graph_counts() -> dict:
@@ -3154,6 +3470,8 @@ def main() -> int:
     clock.done("12_card_vs_cpu_44k")
     graph_launches = graph_replay(card)
     clock.done("22_graph_replay")
+    chain_kernels = convnext_chain_phase(card)
+    clock.done("23_convnext_chain")
     grads_card_vs_cpu(card, float64="report")
     clock.done("9_grads_card_vs_cpu_and_float64")
     discriminators_card_vs_cpu(card)
@@ -3289,7 +3607,7 @@ def main() -> int:
         "floor_ms": floor_ms,
         "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",
         "shapes": adjoint_shapes + reference_batches["adjoint"],
-    }]}))
+    }, *chain_kernels]}))
     clock.done("21_kernels_line")
     print(card)
     print(json.dumps({"ok": True, "device": {

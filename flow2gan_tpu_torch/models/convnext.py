@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU, at_least_float32
+from flow2gan_tpu_torch.ops import convnext_chain as chain
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.stft import real_to_spec, spec_to_real, stft, stft_lens
 from flow2gan_tpu_torch.utils import make_valid_mask
@@ -107,6 +109,15 @@ class DepthwiseConv1d(nn.Module):
         return _conv_same(x, self.weight, self.bias, groups=self.weight.shape[0], dtype=self.dtype)
 
 
+def takes_chain(x: torch.Tensor, gates: Optional[torch.Tensor],
+                dtype: Optional[torch.dtype]) -> bool:
+    """Whether a block runs its eval form through `ops/convnext_chain.py`:
+    no limiter gates, no gradient, float32 compute on a float32 input. The
+    train form and a low-precision compute dtype take the eager chain."""
+    return (gates is None and dtype is None and x.dtype == torch.float32
+            and not torch.is_grad_enabled())
+
+
 class ConvNeXtBlock(nn.Module):
     """depthwise conv -> BiasNorm -> (+cond) -> (x(1+time)) -> MLP -> +residual.
 
@@ -115,6 +126,14 @@ class ConvNeXtBlock(nn.Module):
     have neither). When cond runs at 1/`cond_upsample_factor` of x's frame
     rate, it is projected at its native rate and the projection repeated:
     pointwise ops commute with a nearest repeat.
+
+    The eval form (`takes_chain`) runs the elementwise chain through
+    `ops/convnext_chain.py`, unless a forward hook watches one of the
+    block's modules: on the card three kernels around the GEMMs, each such
+    block counted by `convnext.fused_blocks`; on the CPU their plain
+    versions, the eager arithmetic. An eval-form block on the card that
+    takes the eager chain (grad enabled, bf16, hooked) counts
+    `convnext.eager_blocks`.
     """
 
     def __init__(
@@ -151,6 +170,10 @@ class ConvNeXtBlock(nn.Module):
         mask: Optional[torch.Tensor] = None,
         gates: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        if takes_chain(x, gates, self.dtype) and not self._watched():
+            return self._chain(x, cond, time_embed, mask)
+        if gates is None and x.is_cuda:
+            tracing.count("convnext.eager_blocks")
         residual = x
         if mask is not None:
             x = x * mask.to(x.dtype)
@@ -165,6 +188,30 @@ class ConvNeXtBlock(nn.Module):
         if self.residual_scale is not None:
             residual = self.residual_scale(residual, gates)
         return x + residual
+
+    def _watched(self) -> bool:
+        """Whether a forward hook watches a module the chain runs past (the
+        trainers' diagnostics and `--inf-check` hook every module): then the
+        block runs the eager chain, which calls each of them."""
+        return any(m._forward_hooks or m._forward_pre_hooks for m in self.children())
+
+    def _chain(self, x: torch.Tensor, cond: Optional[torch.Tensor],
+               time_embed: Optional[torch.Tensor], mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The eval form through `ops/convnext_chain.py`: its three kernels
+        around the GEMMs on the card, their plain versions on the CPU."""
+        if x.is_cuda:
+            tracing.count("convnext.fused_blocks")
+            # the kernels read whole rows; the cond encoder's first input is
+            # the transposed view its input conv returns
+            x = x.contiguous()
+        c = te = None
+        if self.cond_proj is not None:
+            c, te = self.cond_proj(cond), self.time_embed_proj(time_embed)
+        y = chain.norm_film(x, mask, self.dwconv.weight, self.dwconv.bias, self.norm.bias,
+                            self.norm.log_scale, c, te, self.cond_upsample_factor)
+        h = chain.prelu_(self.pwconv1(y), self.act.alpha)
+        scale = None if self.residual_scale is None else self.residual_scale.scale
+        return chain.linear_residual(h, self.pwconv2.weight, self.pwconv2.bias, x, scale)
 
 
 class CondEncoder(nn.Module):

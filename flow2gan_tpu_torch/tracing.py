@@ -46,9 +46,13 @@ counters: `collectives` and `collective_bytes` (each all-reduce of
 graph replay adds none, and the kernels it runs are read from the
 profiler), `infer.graph_captures`, `infer.graph_replays` and
 `infer.eager_calls` (the way each `api.VocoderModel.infer` call ran),
-`gan.d_steps` and `gan.g_steps` (GAN steps taken) and
+`gan.d_steps` and `gan.g_steps` (GAN steps taken),
 `solve.recomputed_steps` (Euler steps that `solve(..., remat=True)`
-recomputes in backward).
+recomputes in backward), `convnext.fused_blocks` and `convnext.eager_blocks`
+(ConvNeXt blocks on the card in eval form that ran the chain's kernels, or
+the eager chain: grad enabled or bf16), and `convnext.norm_film_launches`,
+`convnext.prelu_launches` and `convnext.residual_launches` (the chain's
+kernels the host launched; `ops/convnext_chain.py`).
 """
 
 from __future__ import annotations
