@@ -1,77 +1,76 @@
-"""Smoke run of the PyTorch port (`flow2gan_tpu_torch`) on one NVIDIA GPU.
+"""Card check of the PyTorch port (`flow2gan_tpu_torch`) on one NVIDIA GPU.
 
 Run from the repository root on a machine with a Hopper card (sm_90a) and the
 CUDA toolkit:
 
     python3 chip_smoke.py
 
+It checks; `portbench/` measures. The only times it takes are each
+hand-written kernel's alone (phases 3, 4 and 23: its ms, its plain
+version's, the library's where one exists, and the bound from
+`portbench/yardstick.py`), since no benchmark cell times a kernel alone.
+
 Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line), and each followed by a line `phase <name> <seconds>`,
 its wall time (phase 18 one such line for each of its parts):
 
 1. the card (`nvidia-smi` name and power limit) and the torch / CUDA versions;
-2. the build of `flow2gan_tpu_torch/csrc/fused_istft.cu` with nvcc: its time
-   and ptxas' register report;
+2. the build of `flow2gan_tpu_torch/csrc/fused_istft.cu` with nvcc and
+   ptxas' register report;
 3. the fused iSTFT kernel against its plain PyTorch version on the card at
    the six branch shapes of mel_24k_base and mel_44k_128band_512x_base
    (batch 16) and at edge shapes (among them spectra with nonzero imaginary
-   parts at DC and Nyquist, mel_24k_tiny's (64, 32) branch and a 60 s clip),
-   with its time, the plain version's, the time of `torch.istft` (a
-   yardstick the port never calls), the bound, and the timing floor (what
-   the same timing reads for a one-element `add_`);
+   parts at DC and Nyquist, mel_24k_tiny's (64, 32) branch and a 60 s clip);
+   at the branch shapes its time, the plain version's, that of `torch.istft`
+   (a yardstick the port never calls) and the bound, and the timing floor
+   (what the same timing reads for a one-element `add_`);
 4. the adjoint kernel (the iSTFT's backward) against its plain version at
    the same shapes and at the three branch shapes of a training step (batch
-   16 x 1.5 s), with exactly zero imaginary parts at DC and Nyquist, the
-   dot-product identity <istft(s), g> = <s, adjoint(g)> on the card, its
-   time, the plain adjoint's, that of `torch.stft` (the yardstick: the same
-   transform of the padded, enveloped gradient, up to the bin weights), the
-   bound, its share of it and the plan; at the training shapes the kernel
-   and the plain adjoint each against a float64 adjoint (numpy), the
-   kernel's error at most twice the plain one's; then both kernels, with
-   the same checks and times, at the reference's per-card batches: a
-   training step's shapes at its FM batch of 256, a GAN rollout step's at
-   its fine-tuning batch of 64;
+   16 x 1.5 s), with exactly zero imaginary parts at DC and Nyquist and the
+   dot-product identity <istft(s), g> = <s, adjoint(g)> on the card; its
+   time, the plain adjoint's, that of `torch.stft` (the same transform of
+   the padded, enveloped gradient, up to the bin weights) and the bound; at
+   the training shapes the kernel and the plain adjoint each against a
+   float64 adjoint (numpy), the kernel's error at most twice the plain
+   one's; then both kernels, checked and timed, at the reference's per-card
+   batches (a training step's shapes at its FM batch of 256, a GAN rollout
+   step's at its fine-tuning batch of 64), and checked at the GAN rollout
+   and per-rank shapes;
 5. the main path: `get_model("mel_24k_base")` and `infer` on a (16, 100, 94)
-   mel at 1, 2 and 4 Euler steps, with the launch count of the kernel over
-   that run, then the per-call time and x-real-time over timed calls, and
-   mel_44k_128band_512x_base once at 1 step (the timed calls of this and
-   the later serving phases, and the one-call profiles, run the eager path,
-   `eager_infer`: a timed call repeats one key, which `infer` would replay
-   as a CUDA graph, and phase 22 times the replays);
+   mel at 1, 2 and 4 Euler steps (shape, finite, 3 launches of the kernel a
+   step, no adjoint), and mel_44k_128band_512x_base once at 1 step;
 6. card against CPU: the same weights and x0 through `infer_from_noise`;
 7. `reconstruct` from a waveform;
-8. the device-time breakdown of one 1-step call (torch.profiler);
+8. (no longer run: a serving call's profile is `portbench/`'s traced run);
 9. gradients, card against CPU: the FM loss of full mel_24k_base at batch
    2 x 1 s and every parameter's gradient, with the same weights and draws,
    and the launches of both kernels in that step; then, report only, the
    same step on the CPU in float64, and the card's and the CPU's float32
    gradients against it (whole and worst tensor, and the tensor that holds
-   most of the card-vs-CPU gap), with the seconds it took;
+   most of the card-vs-CPU gap);
 10. the trainer: a synthetic 24 kHz corpus written under build/, the port's
    `bin/pretrain.py` run in-process on mel_24k_base (batch 16 x 1.5 s, 32
-   steps), with its launch counts, loss curve, step times, audio trained per
-   second and peak memory; the checkpoints reloaded; `save_averaged_model`
-   and a 1-step call served from the averaged weights; the device-time
-   breakdown of one training step by family;
+   steps): its launches, finite losses, peak memory; the checkpoints
+   reloaded; `save_averaged_model` and a 1-step call served from the
+   averaged weights;
 11. bf16 serving: mel_24k_base with `compute_dtype="bfloat16"` on the seed
-   weights of phase 5, at 1, 2 and 4 steps (launches, then ms per call and
-   x-real-time beside the float32 model's in the same phase), card bf16
-   against card float32, card bf16 against CPU bf16 (the limit: 1/4 of the
+   weights of phase 5, at 1, 2 and 4 steps (launches), card bf16 against
+   card float32 (report), card bf16 against CPU bf16 (the limit: 1/4 of the
    CPU's bf16 distance from float32, plus twice how far the CPU's bf16
    result moves when x0 moves by one float32 ulp), and one 1-step call's
-   device time by family, float32 and bf16 GEMMs apart;
+   GEMMs by input dtype: some bf16, and no float32 but the STFT's six;
 12. 44.1 kHz card against CPU: mel_44k_128band_512x_base, float32, 1 step;
 13. bf16 training: `bin/pretrain.py --use-bf16` for 8 steps on half the
-   corpus (loss curve, step times, audio per second, peak memory, launches
-   of both kernels);
+   corpus (launches of both kernels, finite and falling loss);
 14. the CLIs: `bin/infer --epoch 2 --avg 1` over phase 10's checkpoints and
    a manifest of corpus files, `bin/infer_dir` on a directory of them, whole
-   and in 50-frame chunks; lengths, finiteness, chunked against whole, and
-   the native WAV reader in use;
+   and in 50-frame chunks; lengths, finiteness, launches, chunked against
+   whole, and the native WAV reader in use;
 15. the GAN stage (stage 2), all on mel_24k_base with the full
    discriminators (periods 2-11, windows 2048/1024/512):
    a. both kernels against their plain versions at the rollout shapes of a
-      fine-tuning batch (16 x 1.5 s: 141 mel frames, 36096 samples);
+      fine-tuning batch (16 x 1.5 s: 141 mel frames, 36096 samples; in
+      phase 4);
    b. the discriminators, card against CPU (batch 2 x 1 s, same weights):
       every score and feature map;
    c. the D and G objectives at 1 step, card against CPU (batch 2 x 1 s,
@@ -81,18 +80,17 @@ its wall time (phase 18 one such line for each of its parts):
       from phase 10's averaged model on its corpus, a D-only warm-up of 4
       batches then D/G alternation, 32 batches with validation; the launches
       of every D, G and validation step, finite losses, both sides moved;
-      D-step and G-step times, audio per second of G step, peak memory;
-   e. one D step and one G step profiled by kernel family, the
-      discriminators' own device time measured alone, and the busy share;
+   e. (no longer run: the GAN steps' profiles are the GAN cell's);
    f. one 4-step G step with `--remat-rollout` and without: loss and
-      gradients, peak memory and forward launches of each;
+      gradients within 1e-6, and the forward launches of each (peak memory
+      reported);
    g. `save_averaged_model --load-gan` on the fine-tuner's checkpoints and
       `bin/infer --load-gan` over corpus files at 4 steps;
 16. data parallelism (`parallel/dist.py`), 2 ranks as spawned processes, at
    full mel_24k_base width with the full discriminators; one rank per card
-   over NCCL where there are 2 cards, else both ranks on card 0 over gloo
-   (the backend is printed); both kernels against their plain versions at
-   the per-rank shapes (batch 8) with the other kernel checks above:
+   over NCCL where there are 2 cards, else both ranks on card 0 over gloo;
+   both kernels against their plain versions at the per-rank shapes (batch
+   8) in phase 4:
    a. one FM step as 2 ranks of 8 rows against one process on the global
       batch of 16 x 1.5 s (the second rank's valid lengths shorter), with
       the same weights and draws: loss, and every summed gradient within the
@@ -104,13 +102,9 @@ its wall time (phase 18 one such line for each of its parts):
       whole 2.5e-4 plus two), the floor here being how far one process's
       gradient moves when it computes the global batch as two halves and
       sums them, as the ranks do;
-   c. `bin/pretrain.py` as 2 processes (global batch 16, 6 steps): step ms
-      and audio per second at the global batch, peak memory per rank, the
-      all-reduces' ms per step (CUDA events: the gradient buckets and the
-      small ones apart), each rank's device time in its last step
-      (profiled; NCCL's kernels, which spin while they wait, apart) and
-      busy share, both kernels' launches per rank, and that
-      only rank 0 wrote checkpoints and a log;
+   c. `bin/pretrain.py` as 2 processes (global batch 16, 6 steps): equal
+      finite losses on both ranks, both kernels' launches per rank, and
+      that only rank 0 wrote checkpoints and a log;
 17. resume: `bin/pretrain.py` (4 steps) and `bin/finetune.py` (4 Euler
    steps, batches D, D, G, D, `--freeze-modules cond_encoder`) run
    straight twice and once with `--resume-from checkpoint-2.pt`: the
@@ -125,22 +119,19 @@ its wall time (phase 18 one such line for each of its parts):
       but on near-ties (best two scores within 1e-5 of max|score|), which
       are under 1% of the frames and counted;
    b. `get_model("token_24k_base", tokenizer=...)` on a (16, 94) array of
-      ids at 1, 2 and 4 steps: launches (3 per Euler step), then ms per
-      call and x-real-time in turns with mel_24k_base's, one 1-step call
-      of each by device time; card against CPU through infer_from_noise;
-      `reconstruct` from a waveform;
+      ids at 1, 2 and 4 steps: launches (3 per Euler step); card against
+      CPU through infer_from_noise; `reconstruct` from a waveform;
    c. the FM loss and gradients card against CPU at batch 2 x 1 s: phase
       9's limits, but each tensor's 1e-2 plus four times how far the CPU's
       gradient of it moves when the parameters and x0 move by one float32
       ulp (as 15c holds the G side; the embedding's gradient is among the
       tensors), and (3, 3) launches;
    d. `bin/pretrain.py --tokenizer` for 8 steps at batch 16 x 1.5 s: every
-      step's launches, losses, step ms, audio per second, peak memory; one
-      step's device time by family;
+      step's launches, finite losses;
    e. `bin/finetune.py --tokenizer` at 4 Euler steps from d's average, 8
-      batches: every step's launches (D 12; G 12 and 12), losses; its two
-      exports, as phase 20 checks them: the last weights equal epoch-1's
-      generator bit for bit, the windowed average does not;
+      batches: every step's launches (D 12; G 12 and 12), finite losses;
+      its two exports, as phase 20 checks them: the last weights equal
+      epoch-1's generator bit for bit, the windowed average does not;
    f. `bin/infer --tokenizer`, and `bin/infer_dir` with `--tokenizer` on
       wavs and `--tokens true` on their ids, whole and chunked;
 19. observability, on mel_24k_base from phase 10's corpus and averaged
@@ -152,13 +143,12 @@ its wall time (phase 18 one such line for each of its parts):
       back (framing, CRCs, the scalar, audio and image tags); the Chrome
       trace's kernel events of batches 10-15 against the launches counted
       there (18 and 18), the trace then deleted; `env_info` with the card's
-      name and `best_valid_loss` in every checkpoint; the median ms of the
-      steps that write nothing beside phase 10's;
+      name and `best_valid_loss` in every checkpoint;
    b. `--inf-check` with the third batch's first row NaN: that step
       clipped to zero, the dominant gradients and the first non-finite
       module output named, no failed replay, training going on;
    c. `--print-diagnostics` at batch 4 x 1 s: 5 batches, the tables of
-      each kind counted, the wall time, the launches;
+      each kind counted, the launches;
    d. `bin/finetune.py` at 4 Euler steps with the full discriminators, 16
       batches with `--tensorboard`, `--test-recordings`, `--profile-dir`
       and `--inf-check` (every step's launches, the event file, the trace
@@ -181,11 +171,10 @@ its wall time (phase 18 one such line for each of its parts):
    (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
    exported generator, each output checked;
 21. the `kernels` JSON line (the fused iSTFT, its adjoint and phase 23's
-   three ConvNeXt chain kernels; each kernel's launches on every path, the
-   data-parallel ones per rank; on a path where `infer` replays CUDA graphs,
-   the kernels the profiler saw the device run, since a replay launches
-   nothing from the host and so adds nothing to `istft.launches`), then the
-   card line and the result line;
+   three ConvNeXt chain kernels: each one's times at the shapes of one
+   serving or training step and the shapes behind them, and its launches
+   on the paths PERF.md's kernel table reads), then the card line and the
+   result line;
 22. (run after phase 12) `VocoderModel.infer`'s CUDA graphs: on a fresh model
    one eager call, one capture and four replays at other seeds, each output
    equal to the eager path's (`torch.equal`), for mel_44k_128band_512x_base
@@ -198,28 +187,26 @@ its wall time (phase 18 one such line for each of its parts):
    against the eager stream, bit for bit, with the profiler's `fused_istft`
    kernels over it 3 x chunks; three keys captured in turn for three
    rounds, each output equal to eager, the allocator's reserved bytes not
-   growing past the first round's (one capture stream and pool a model),
-   the ms of a capturing call beside an eager one; the host's ms a chunk,
-   replayed and eager;
+   growing past the first round's (one capture stream and pool a model);
 23. (run after phase 22) the ConvNeXt blocks' eval-form chain
    (`flow2gan_tpu_torch/csrc/convnext_chain.cu`): its build and ptxas'
    report; its three kernels against their plain versions at the main
    path's block shapes (bulk serving at batch 16, 101 and 872 mel frames:
    the three branches and the cond encoder; the stream's 148-frame chunk at
-   batch 1) and at edges (a ragged mask, fewer frames than taps, one
-   frame, a cond longer than needed, widths 48, 64 and 1024), each with its
-   ms, its plain version's and its byte bound at 3.35 TB/s; one 768-channel
-   block's eval form against the eager chain, the kernels one call runs
-   (the chain's three beside the GEMMs: no bias pass) and both forms' ms;
-   on a fresh model's first call 100 `convnext.fused_blocks` and no
+   batch 1), each with its ms, its plain version's and its byte bound at
+   the yardstick's HBM rate, and at edges (a ragged mask, fewer frames than
+   taps, one frame, a cond longer than needed, widths 48, 64 and 1024); one
+   768-channel block's eval form against the eager chain, and the kernels
+   one call runs (the chain's three beside the GEMMs: no bias pass); on a
+   fresh model's first call 100 `convnext.fused_blocks` and no
    `convnext.eager_blocks` (mel_24k_base, 4 steps), 28 on the 44.1 kHz
    stream chunk, and 28 eager in bf16; each call against the eager chain;
-   a bulk call's device time by family (no depthwise conv left), bulk
-   calls and replayed stream chunks timed in turns against the eager chain.
+   no depthwise conv kernel in a bulk call.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -264,7 +251,6 @@ from flow2gan_tpu_torch.data.dataset import (
 )
 from flow2gan_tpu_torch.models import FMDraws, RolloutDraws, build_generator, get_generator_config
 from flow2gan_tpu_torch.models.discriminators import Discriminators, init_discriminators
-from flow2gan_tpu_torch.models.gan import discriminator_loss, feature_matching_loss, generator_loss
 from flow2gan_tpu_torch.models.gan import make_mel_recon_fns
 from flow2gan_tpu_torch.models import convnext
 from flow2gan_tpu_torch.models.convnext import ConvNeXtBlock
@@ -282,11 +268,8 @@ from flow2gan_tpu_torch.training.gan_step import make_gan_loss_fns, make_gan_ste
 from flow2gan_tpu_torch.training.optim import ScaledAdam
 from flow2gan_tpu_torch.training.train_step import fm_train_step, step_generator
 from flow2gan_tpu_torch.utils import disable_tf32, make_valid_mask
+from portbench import yardstick
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and float32 FMA rate outside the
-# tensor cores (the kernel accumulates in IEEE float32 on the CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 ISTFT_TOL = 1e-5  # kernel vs plain, relative to max|plain|
 CARD_VS_CPU_TOL = 1e-4  # whole model, relative to max|CPU|
 # Gradients, card vs CPU (float32, TF32 off). Card and CPU round every op
@@ -303,7 +286,6 @@ GRAD_F64_RATIO = 2.0  # a tensor over 1e-2 needs card vs float64 <= 1e-2 and <= 
 ROOT = Path(__file__).resolve().parent / "build"
 TRACE_DIR = ROOT / "traces"  # read, then deleted
 TIMED_SAMPLES = 25
-TIMED_CALLS = 20
 SLEEP_CYCLES = 2_000_000  # about 1 ms of GPU spin ahead of each timed sample
 
 # (n_fft, hop, batch, t_f, length): the iSTFT shapes of one Euler step of
@@ -463,26 +445,12 @@ def device_ms(fn, samples: int = TIMED_SAMPLES) -> list:
     return [s.elapsed_time(e) for s, e in pairs]
 
 
-def istft_bound_ms(n_fft, batch, t_f, length):
-    """(bytes_ms, ops_ms, matmul_ops_ms) of the iSTFT on this card, at the
-    data-sheet rates. The bound is the larger of the first two.
-
-    bytes: the spectrogram read once and the waveform written once (the
-    kernel's twiddle and window tables are constants of n_fft, not inputs
-    of the function). ops: the fewest the function needs, an
-    inverse real FFT per frame (2.5 N log2 N FLOP), the window multiply and
-    the overlap-add (2 N per frame) and the envelope divide (one per output
-    sample). matmul_ops: the 2 * B * T_f * 2F * N FLOP of the matmul form
-    that the first version of the kernel computed, which is no bound: an FFT
-    does the same work in far fewer.
-    """
-    n_freq = n_fft // 2 + 1
-    frames = batch * t_f
-    bytes_ = frames * n_freq * 8 + batch * length * 4
-    flop = frames * (2.5 * n_fft * math.log2(n_fft) + 2 * n_fft) + batch * length
-    matmul_flop = 2 * frames * 2 * n_freq * n_fft
-    return tuple(x * 1e3 for x in (
-        bytes_ / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S, matmul_flop / FP32_FLOP_PER_S))
+def bound_ms(kernel: str, n_fft, hop, batch, t_f, length) -> float:
+    """The yardstick's least time in ms of `kernel` ("istft" or "adjoint")
+    at one shape (`portbench/yardstick.py`: bytes against FFT-form
+    operations at the data-sheet rates)."""
+    bound_s = yardstick.istft_bound_s if kernel == "istft" else yardstick.adjoint_bound_s
+    return 1e3 * bound_s(n_fft, batch, t_f, length)
 
 
 def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: bool) -> dict:
@@ -496,7 +464,7 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: b
         imag[..., 0] = imag[..., -1] = 0.0
     spec = torch.complex(torch.randn(batch, t_f, n_freq, generator=gen, device="cuda"), imag)
     ref = fused.istft_plain(spec, n_fft, hop, length=length)
-    out = fused.istft_kernel(spec, n_fft, hop, length=length)
+    out = fused.fused_istft(spec, n_fft, hop, length=length)
     torch.cuda.synchronize()
     if out.shape != (batch, length) or not torch.isfinite(out).all():
         raise AssertionError(f"kernel output {tuple(out.shape)} not finite or not {(batch, length)}")
@@ -519,7 +487,7 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: b
 
         lib_err = (library() - ref).abs().max().item() / ref.abs().max().item()
         fns = {
-            "ms": lambda: fused.istft_kernel(spec, n_fft, hop, length=length),
+            "ms": lambda: fused.fused_istft(spec, n_fft, hop, length=length),
             "plain_ms": lambda: fused.istft_plain(spec, n_fft, hop, length=length),
             "library_ms": library,
         }
@@ -527,23 +495,11 @@ def check_istft_shape(n_fft, hop, batch, t_f, length, real_edges: bool, timed: b
         # two interleaved rounds, so drift on the card falls on all three alike
         for key in [*fns, *reversed(fns)]:
             times[key] += device_ms(fns[key])
-        bytes_ms, ops_ms, matmul_ops_ms = istft_bound_ms(n_fft, batch, t_f, length)
         row.update({key: statistics.median(v) for key, v in times.items()})
-        row.update(samples=len(times["ms"]), library_max_rel_err=lib_err,
-                   bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   bound_share=max(bytes_ms, ops_ms) / row["ms"], matmul_ops_ms=matmul_ops_ms)
+        bound = bound_ms("istft", n_fft, hop, batch, t_f, length)
+        row.update(samples=len(times["ms"]), library_max_rel_err=lib_err, bound_ms=bound,
+                   bound_share=bound / row["ms"])
     return row
-
-
-def adjoint_bound_ms(n_fft, batch, t_f, length):
-    """(bytes_ms, ops_ms) of the iSTFT's adjoint: the waveform's gradient read
-    once and the spectrogram's written once; a forward real FFT per frame
-    (2.5 N log2 N FLOP), the window multiply (N per frame) and the envelope
-    divide (one per sample)."""
-    bytes_ = batch * length * 4 + batch * t_f * (n_fft // 2 + 1) * 8
-    flop = batch * t_f * (2.5 * n_fft * math.log2(n_fft) + n_fft) + batch * length
-    return bytes_ / HBM_BYTES_PER_S * 1e3, flop / FP32_FLOP_PER_S * 1e3
 
 
 def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
@@ -563,7 +519,7 @@ def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
     # <istft(s), g> = <s, adjoint(g)> with both kernels
     spec = torch.complex(torch.randn(batch, t_f, n_fft // 2 + 1, generator=gen, device="cuda"),
                          torch.randn(batch, t_f, n_fft // 2 + 1, generator=gen, device="cuda"))
-    y = fused.istft_kernel(spec, n_fft, hop, length=length).double()
+    y = fused.fused_istft(spec, n_fft, hop, length=length).double()
     lhs = (y * grad.double()).sum().item()
     rhs = (torch.view_as_real(spec).double() * torch.view_as_real(out).double()).sum().item()
     dot_err = abs(lhs - rhs) / max((y * grad.double()).abs().sum().item(), 1e-30)
@@ -601,12 +557,10 @@ def check_adjoint_shape(n_fft, hop, batch, t_f, length, timed: bool) -> dict:
         times = {key: [] for key in fns}
         for key in [*fns, *reversed(fns)]:
             times[key] += device_ms(fns[key])
-        bytes_ms, ops_ms = adjoint_bound_ms(n_fft, batch, t_f, length)
         row.update({key: statistics.median(v) for key, v in times.items()})
-        row.update(samples=len(times["ms"]), library_max_rel_err=lib_err,
-                   bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms, ops_ms=ops_ms,
-                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                   bound_share=max(bytes_ms, ops_ms) / row["ms"])
+        bound = bound_ms("adjoint", n_fft, hop, batch, t_f, length)
+        row.update(samples=len(times["ms"]), library_max_rel_err=lib_err, bound_ms=bound,
+                   bound_share=bound / row["ms"])
     return row
 
 
@@ -657,25 +611,9 @@ def eager_infer(vm: VocoderModel, cond, n: int, seed: int) -> torch.Tensor:
         return vm.module.infer(vm._on_device(cond), n_timesteps=n, clamp_pred=True, generator=gen)
 
 
-@untraced()
-def time_calls(fn, calls: int = TIMED_CALLS):
-    """Host wall time per call in ms, each call ended by a device sync."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) * 1e3)
-    return out
-
-
-def main_path(card: str, model, mel):
-    """Serve mel_24k_base at 1/2/4 steps; returns the kernel's launches over
-    one call at each step count, the median ms of a 1-step call, and the
-    launches of one 1-step mel_44k_128band_512x_base call."""
+def main_path(model, mel) -> tuple:
+    """Serve mel_24k_base at 1/2/4 steps and mel_44k_128band_512x_base at 1;
+    returns the (forward, adjoint) launches of the three mel_24k_base calls."""
     tracing.drain()
     for n in (1, 2, 4):
         before = n_istft()
@@ -686,37 +624,21 @@ def main_path(card: str, model, mel):
         if n_istft() - before != 3 * n:
             raise AssertionError(f"{n}-step call launched the kernel {n_istft() - before} "
                                  f"times, expected {3 * n}")
-    launches = n_istft()
+    launches = (n_istft(), n_adjoint())
     if n_adjoint():
         raise AssertionError(f"serving launched the adjoint {n_adjoint()} times")
-    print(f"main path: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
-
-    audio_s = 16 * 24064 / 24000
-    median_ms = {}
-    for n in (1, 2, 4):
-        ms = time_calls(lambda: eager_infer(model, mel, n, 0))
-        med = median_ms[n] = statistics.median(ms)
-        print("main path timing " + json.dumps({
-            "config": "mel_24k_base", "n_timesteps": n, "batch": 16, "mel_frames": 94,
-            "audio_s": audio_s, "calls": len(ms), "ms_median": med, "ms_min": min(ms),
-            "ms_max": max(ms), "x_real_time_median": audio_s / med * 1e3,
-            "x_real_time_min": audio_s / max(ms) * 1e3, "x_real_time_max": audio_s / min(ms) * 1e3,
-            "card": card,
-        }))
+    print(f"main path: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches "
+          f"{launches[0]}")
 
     model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
     mel44 = torch.from_numpy(np.random.RandomState(1).randn(16, 128, 87).astype(np.float32))
     tracing.drain()
     wav = model44.infer(mel44, n_timesteps=1)
     torch.cuda.synchronize()
-    launches44 = n_istft()
-    if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or launches44 != 3:
-        raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, {launches44} launches")
-    ms = time_calls(lambda: eager_infer(model44, mel44, 1, 0), calls=5)
-    print("44.1 kHz: mel_44k_128band_512x_base 1 step, batch 16 " + json.dumps(
-        {"ms_median": statistics.median(ms), "x_real_time_median":
-         16 * 44544 / 44100 / statistics.median(ms) * 1e3, "card": card}))
-    return launches, median_ms[1], launches44
+    if wav.shape != (16, 44544) or not torch.isfinite(wav).all() or n_istft() != 3:
+        raise AssertionError(f"44.1 kHz 1-step call: {tuple(wav.shape)}, {n_istft()} launches")
+    print("44.1 kHz: mel_44k_128band_512x_base 1 step, batch 16, finite, 3 launches")
+    return launches
 
 
 def card_vs_cpu():
@@ -741,16 +663,20 @@ def card_vs_cpu():
 
 
 _GEMM_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
-_DTYPES = {"float": "fp32", "c10::BFloat16": "bf16", "c10::Half": "fp16"}
-# kernel names of GEMMs (cuBLAS, cuBLASLt and CUTLASS kernels, split-K reductions)
-_GEMM_NAMES = re.compile(r"gemm|nvjet|xmma|cutlass|splitkreduce", re.IGNORECASE)
 
 
-def gemm_ms_by_dtype(prof, trace: Path) -> dict:
-    """Device ms, kernels and ops of the GEMMs in a profile, by the input
-    dtype of the matmul op that launched each kernel (the trace links a
-    kernel to its op by "External id"; the op's "Input type" comes with
-    record_shapes). One op may launch two kernels (split-K)."""
+def gemm_ops_by_dtype(fn) -> dict:
+    """The matmul ops of fn() that ran a kernel on the card, counted by
+    their first input's dtype as the profiler names it ("float",
+    "c10::BFloat16"): the trace links a kernel to its op by "External id",
+    and the op's "Input type" comes with record_shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = TRACE_DIR / "gemms.json"
     trace.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
@@ -758,20 +684,9 @@ def gemm_ms_by_dtype(prof, trace: Path) -> dict:
     ops = {e["args"]["External id"]: e["args"].get("Input type", ["?"])[0]
            for e in events if e.get("cat") == "cpu_op" and e.get("name") in _GEMM_OPS
            and "External id" in e.get("args", {})}
-    out, seen = {}, {}
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        ext = e.get("args", {}).get("External id")
-        if ext in ops:
-            key = _DTYPES.get(ops[ext], ops[ext])
-            row = out.setdefault(key, {"ms": 0.0, "kernels": 0, "ops": 0})
-            row["ms"] += e["dur"] / 1e3
-            row["kernels"] += 1
-            seen.setdefault(key, set()).add(ext)
-    for key, exts in seen.items():
-        out[key]["ops"] = len(exts)
-    return out
+    ran = {e["args"]["External id"] for e in events
+           if e.get("cat") == "kernel" and e.get("args", {}).get("External id") in ops}
+    return dict(collections.Counter(ops[ext] for ext in ran))
 
 
 def _dev_us(e):  # the attribute's name differs across torch versions
@@ -788,24 +703,12 @@ def device_kernels(prof) -> list:
             if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0 and e.key not in marks]
 
 
-NCCL_FAMILY = "nccl collectives (with their waits)"
-
-
-def _family(name: str) -> str:
-    for key in ("fused_istft_adjoint", "fused_istft", "conv_depthwise"):
-        if key in name:
-            return key
-    if name.startswith("nccl"):
-        # a collective's kernel spins on the card until every rank arrives
-        return NCCL_FAMILY
-    return "gemm" if _GEMM_NAMES.search(name) else "elementwise, reductions, copies"
-
-
 @contextlib.contextmanager
 def kernels_run():
     """A dict that gets, when the context closes, the device kernels the
     profiler saw run inside it, CUDA graph replays included: all of them
-    (`kernels`), and the fused iSTFT's (`forward`) and its adjoint's
+    (`kernels`), the count of each of the yardstick's families
+    (`by_family`), and the fused iSTFT's (`forward`) and its adjoint's
     (`adjoint`)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -813,50 +716,11 @@ def kernels_run():
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         yield runs
         torch.cuda.synchronize()
-    rows = device_kernels(prof)
-    runs["kernels"] = sum(c for _, _, c in rows)
-    for key, family in (("forward", "fused_istft"), ("adjoint", "fused_istft_adjoint")):
-        runs[key] = sum(c for _, name, c in rows if _family(name) == family)
-
-
-# cuDNN's convolution kernels (forward, data and weight gradients): the
-# discriminators' Conv2d, and the generator's k=3 input conv
-_CONV_NAMES = re.compile(r"fprop|dgrad|wgrad|convolve|conv2d|implicit", re.IGNORECASE)
-
-
-def _gan_family(name: str) -> str:
-    if "conv_depthwise" not in name and "fused_istft" not in name and _CONV_NAMES.search(name):
-        return "conv (cuDNN)"
-    return _family(name)
-
-
-def profile_one_call(card: str, model, mel, wall_ms: float, label: str) -> dict:
-    """Device time of one eager 1-step call by kernel family, the GEMMs split
-    by input dtype, and the device's busy share against the unprofiled
-    median call time; returns the GEMM split."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        eager_infer(model, mel, 1, 0)
-        torch.cuda.synchronize()
-
-    kernels = device_kernels(prof)
-    total_ms = sum(k[0] for k in kernels) / 1e3
-    families = {}
-    for us, name, _ in kernels:
-        families[_family(name)] = families.get(_family(name), 0.0) + us / 1e3
-    gemms = gemm_ms_by_dtype(prof, TRACE_DIR / f"1step_{label}.json")
-    print(f"profile 1 step {label} " + json.dumps({
-        "device_ms": total_ms, "call_ms_median_unprofiled": wall_ms,
-        "device_busy_share": total_ms / wall_ms if total_ms else "not measured",
-        "device_events": sum(k[2] for k in kernels),
-        "by_family_ms": families, "gemm_by_input_dtype": gemms,
-        "top": [{"name": name[:100], "ms": us / 1e3, "count": count}
-                for us, name, count in sorted(kernels, reverse=True)[:12]],
-        "card": card,
-    }))
-    return gemms
+    families = collections.Counter()
+    for _, name, count in device_kernels(prof):
+        families[yardstick.family(name)] += count
+    runs.update(kernels=sum(families.values()), by_family=families,
+                forward=families[yardstick.ISTFT], adjoint=families[yardstick.ADJOINT])
 
 
 def voiced(rng: np.random.RandomState, batch: int, length: int, sr: int = 24000) -> np.ndarray:
@@ -883,12 +747,12 @@ def _rel_all(a: dict, b: dict) -> float:
 
 
 def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5,
-                      float64: str = None) -> tuple:
+                      float64: str = None) -> None:
     """The FM loss and every parameter gradient of a full-width config
     (mel_24k_base, or token_24k_base on random token ids) at batch 2 x 1 s,
     card against CPU, with the same weights, t, x0, gates and branch
     weights drawn from `seed`; the step goes through both kernels three
-    times each. Returns the launches (forward, adjoint).
+    times each.
 
     With `float64` the CPU also runs the step in float64 (the same weights
     and inputs, widened), the exact gradient as far as float32 can tell,
@@ -950,7 +814,6 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
     if float64 not in (None, "check", "report"):
         raise ValueError(f"float64 is None, 'check' or 'report', not {float64!r}")
     if float64:
-        t0 = time.perf_counter()
         exact = copy.deepcopy(cpu).double()
         loss64, g64 = run(exact, "cpu", torch.float64)
         del exact
@@ -965,8 +828,7 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
             "worst_tensor_card_vs_f64": card64[card_worst], "its_name_card": card_worst,
             "worst_tensor_cpu_vs_f64": cpu64[cpu_worst], "its_name_cpu": cpu_worst,
             "largest_card_vs_cpu_error_tensor": largest,
-            "its_card_vs_f64": card64[largest], "its_cpu_vs_f64": cpu64[largest],
-            "float64_step_s": round(time.perf_counter() - t0, 2), "card": card}))
+            "its_card_vs_f64": card64[largest], "its_cpu_vs_f64": cpu64[largest], "card": card}))
         over = sorted((k for k in per if per[k] > GRAD_TENSOR_TOL), key=lambda k: -per[k])
         far = sorted(per, key=lambda k: -card64[k])[:5]
         report.update({
@@ -990,7 +852,6 @@ def grads_card_vs_cpu(card: str, model_name: str = "mel_24k_base", seed: int = 5
     if not (finite and loss_err <= LOSS_TOL and total <= GRAD_TOL and all(passes.values())):
         raise AssertionError("card and CPU gradients disagree: "
                              f"{sorted(k for k in passes if not passes[k])}")
-    return launches
 
 
 def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
@@ -1008,82 +869,6 @@ def write_corpus(root: Path, n: int, seconds: float, seed: int) -> Path:
     return manifest
 
 
-def device_families(fn, trace: Path = None, family=None, kernels: list = None):
-    """Device ms by kernel family (`family`, default `_family`) of what fn()
-    runs (torch.profiler), and with `trace` also the GEMMs by input dtype;
-    `kernels`, where given, receives each kernel name's launch count."""
-    from torch.profiler import ProfilerActivity, profile
-
-    family = family or _family
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=trace is not None) as prof:
-        fn()
-        torch.cuda.synchronize()
-    families = {}
-    for us, name, count in device_kernels(prof):
-        families[family(name)] = families.get(family(name), 0.0) + us / 1e3
-        if kernels is not None:
-            kernels.append(count)
-    return families, (gemm_ms_by_dtype(prof, trace) if trace is not None else None)
-
-
-def profile_train_step(card: str, step_ms: float, compute_dtype=None, tokenizer=None) -> None:
-    """The device time of one mel_24k_base training step (batch 16 x 1.5 s),
-    or with `tokenizer` one token_24k_base step conditioned on its ids, by
-    family, the GEMMs by input dtype, the optimizer's part measured alone,
-    and the busy share against the trainer's median step."""
-    model_name = "token_24k_base" if tokenizer is not None else "mel_24k_base"
-    cfg = get_generator_config(model_name)
-    cfg["compute_dtype"] = compute_dtype
-    label = (compute_dtype or "float32") + ("_token" if tokenizer is not None else "")
-    model = init_weights(build_generator(cfg), torch.Generator().manual_seed(1)).cuda()
-    mel_fn = (tokenizer if tokenizer is not None else LogMelSpectrogram(
-        sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100)).cuda()
-    optimizer = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
-    audio = torch.from_numpy(voiced(np.random.RandomState(11), 16, 36000)).cuda()
-    batch = {"audio": audio, "audio_lens": torch.full((16,), 36000, device="cuda")}
-
-    def step(i):
-        return fm_train_step(model, optimizer, mel_fn, batch, 1e-3, step_generator(0, i, "cuda"))
-
-    for i in range(3):
-        step(i)
-    wall = []
-    for i in range(3, 8):  # without the data loader's threads beside it
-        begin = time.perf_counter()
-        float(step(i)["loss"])
-        wall.append((time.perf_counter() - begin) * 1e3)
-    step_fams, gemms = device_families(lambda: step(8), TRACE_DIR / f"train_step_{label}.json")
-    model(mel_fn(audio), audio, batch["audio_lens"],
-          model.draw(audio, 141, step_generator(0, 9, "cuda"))).backward()
-    opt_ms = sum(device_families(lambda: optimizer.step(1e-3))[0].values())
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    model(mel_fn(audio), audio, batch["audio_lens"],
-          model.draw(audio, 141, step_generator(0, 10, "cuda"))).backward()
-    torch.cuda.synchronize()
-    start.record()
-    optimizer.step(1e-3)
-    stop.record()
-    torch.cuda.synchronize()
-    total = sum(step_fams.values())
-    if not total:
-        raise AssertionError("torch.profiler recorded no device time for a training step")
-    # the optimizer's kernels are all elementwise, reductions, sorts and copies
-    key = "elementwise, reductions, copies"
-    step_fams[key] = step_fams.get(key, 0.0) - opt_ms
-    step_fams["optimizer (ScaledAdam, measured alone)"] = opt_ms
-    print(f"profile train step {label} " + json.dumps({
-        "config": model_name, "compute_dtype": compute_dtype or "float32", "batch": 16,
-        "seconds_per_item": 1.5,
-        "device_ms": total, "gemm_by_input_dtype": gemms,
-        "step_ms_median_unprofiled": step_ms, "device_busy_share": total / step_ms,
-        "step_ms_median_without_loader": statistics.median(wall),
-        "by_family_ms": step_fams, "optimizer_share_of_device_ms": opt_ms / total,
-        "optimizer_span_ms_events": start.elapsed_time(stop),
-        "optimizer_groups": len(optimizer.groups), "parameter_tensors":
-            sum(len(g.params) for g in optimizer.groups), "card": card}))
-
-
 def trainer(card: str, root: Path):
     """mel_24k_base trained through the port's bin/pretrain.py on a corpus
     written under `root`; returns the two kernels' launches over the run, the
@@ -1096,10 +881,8 @@ def trainer(card: str, root: Path):
         "--exp-dir", str(exp), "--train-recordings", str(train), "--valid-recordings", str(valid)])
     torch.cuda.reset_peak_memory_stats()
     tracing.drain()
-    start = time.perf_counter()
     history = pretrain.run(args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steps = len(history)
@@ -1110,14 +893,10 @@ def trainer(card: str, root: Path):
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite training loss: {losses}")
-    ms = [h["ms"] for h in history[2:]]  # the first steps allocate and tune
-    med = statistics.median(ms)
     print("trainer " + json.dumps({
         "config": "mel_24k_base", "batch": 16, "seconds_per_item": 1.5, "steps": steps,
         "loss_curve": losses, "clip_scale": [h["clip_scale"] for h in history],
-        "first_step_ms": history[0]["ms"], "step_ms_median": med, "step_ms_min": min(ms),
-        "step_ms_max": max(ms), "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
-        "peak_memory_gb": peak_gb, "run_wall_s": wall_s, "launches": launches, "card": card}))
+        "peak_memory_gb": peak_gb, "launches": launches, "card": card}))
 
     # the checkpoints reload onto a fresh model and optimizer, and the
     # batch checkpoint at the last step equals the last epoch's
@@ -1140,8 +919,7 @@ def trainer(card: str, root: Path):
                              f"{n_istft() - before} launches")
     print(f"trainer checkpoints: epoch-2 and checkpoint-{steps} reload; averaged model "
           f"{out.name} serves a 1-step call of {tuple(wav.shape)}, finite, 3 launches")
-    profile_train_step(card, med)
-    return launches, exp, out, med
+    return launches, exp, out
 
 
 def bf16_vocoder(device: str) -> VocoderModel:
@@ -1189,11 +967,9 @@ def bf16_card_vs_cpu(card: str) -> None:
         raise AssertionError(f"card bf16 and CPU bf16 disagree: {err} > {limit}")
 
 
-def bf16_serving(card: str, model32, mel) -> int:
-    """mel_24k_base in bf16 at 1/2/4 steps: launches, times beside the
-    float32 model's, card bf16 against card float32 and against the CPU, and
-    one call's device time by family. Returns the launches over the three
-    calls."""
+def bf16_serving(card: str, model32, mel) -> None:
+    """mel_24k_base in bf16 at 1/2/4 steps: launches, card bf16 against card
+    float32 and against the CPU, and one 1-step call's GEMMs by input dtype."""
     model16 = bf16_vocoder("cuda")
     tracing.drain()
     outs = {}
@@ -1206,43 +982,27 @@ def bf16_serving(card: str, model32, mel) -> int:
         if n_istft() - before != 3 * n:
             raise AssertionError(f"bf16 {n}-step call launched the kernel {n_istft() - before} "
                                  f"times, expected {3 * n}")
-    launches = n_istft()
     if n_adjoint():
         raise AssertionError(f"bf16 serving launched the adjoint {n_adjoint()} times")
-    print(f"bf16 serving: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches {launches}")
+    print(f"bf16 serving: mel_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches "
+          f"{n_istft()}")
     for n in (1, 2, 4):
         with torch.inference_mode():
             ref = model32.infer(mel, n_timesteps=n)
         print(f"bf16 vs f32 on the card, {n} step(s): " + json.dumps({
             "rms": rms(outs[n], ref), "max_abs": (outs[n] - ref).abs().max().item(),
             "f32_rms_level": ref.double().pow(2).mean().sqrt().item()}))
-
-    audio_s = 16 * 24064 / 24000
-    median16 = {}
-    for n in (1, 2, 4):
-        row = {"config": "mel_24k_base", "n_timesteps": n, "batch": 16, "mel_frames": 94,
-               "audio_s": audio_s, "card": card}
-        for name, m in (("f32", model32), ("bf16", model16), ("f32_again", model32),
-                        ("bf16_again", model16)):
-            ms = time_calls(lambda: eager_infer(m, mel, n, 0))
-            med = statistics.median(ms)
-            row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
-                         "x_real_time_median": audio_s / med * 1e3,
-                         "x_real_time_min": audio_s / max(ms) * 1e3,
-                         "x_real_time_max": audio_s / min(ms) * 1e3}
-        median16[n] = statistics.median([row["bf16"]["ms_median"], row["bf16_again"]["ms_median"]])
-        print("bf16 serving timing " + json.dumps(row))
     bf16_card_vs_cpu(card)
-    gemms = profile_one_call(card, model16, mel, median16[1], "bf16")
+    gemms = gemm_ops_by_dtype(lambda: eager_infer(model16, mel, 1, 0))
+    print(f"bf16 serving, one 1-step call's GEMM ops by input dtype: {json.dumps(gemms)}")
     # only the STFT's DFT matmuls (two per branch) may stay float32
-    if gemms.get("bf16", {}).get("ops", 0) == 0 or gemms.get("fp32", {}).get("ops", 0) > 6:
+    if gemms.get("c10::BFloat16", 0) == 0 or gemms.get("float", 0) > 6:
         raise AssertionError(f"a bf16 call's GEMMs are not bf16 but the STFT's: {gemms}")
-    return launches
 
 
-def card_vs_cpu_44k(card: str) -> int:
+def card_vs_cpu_44k() -> None:
     """mel_44k_128band_512x_base, float32, 1 step at batch 2, card against
-    CPU with the same weights and x0; returns the card run's launches."""
+    CPU with the same weights and x0."""
     gpu = get_model("mel_44k_128band_512x_base", device="cuda", seed=0).module
     cpu = get_model("mel_44k_128band_512x_base", device="cpu", seed=0).module
     rng = np.random.RandomState(4)
@@ -1259,7 +1019,6 @@ def card_vs_cpu_44k(card: str) -> int:
           f"launches {launches}")
     if launches != 3 or not rel <= CARD_VS_CPU_TOL:
         raise AssertionError(f"44.1 kHz: card and CPU disagree ({rel}) or {launches} launches")
-    return launches
 
 
 CHAIN_COUNTERS = ("fused_blocks", "eager_blocks", "norm_film_launches", "prelu_launches",
@@ -1356,7 +1115,7 @@ def check_chain_shape(label, batch, frames, channels, f, conditioned, ragged=Fal
             times[key] += device_ms(fns[key])
         row.update({f"{key}_ms": statistics.median(v) for key, v in times.items()})
         for key, nbytes in chain_bytes(batch, frames, channels, f, conditioned).items():
-            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = nbytes / yardstick.HBM_BYTES_PER_S * 1e3
             row.update({f"{key}_bound_ms": bound, f"{key}_bound_share": bound / row[f"{key}_ms"]})
     return row
 
@@ -1366,7 +1125,7 @@ def chain_block(card: str) -> dict:
     batch 16 x 873 frames: its eval form through the kernels against the
     eager chain (grad enabled) on the card; the kernels three eval-form
     calls run (the three chain kernels, once a call, and the GEMMs: no bias
-    pass beside the GEMMs); both forms' device ms."""
+    pass beside the GEMMs)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(19)
@@ -1398,15 +1157,11 @@ def chain_block(card: str) -> dict:
                 block(x, cond, time_embed)
         torch.cuda.synchronize()
     kernels = [(name, count) for _, name, count in device_kernels(prof)]
-    others = [(name[:90], count) for name, count in kernels if _family(name) != "gemm"]
-    with torch.no_grad():
-        fused_ms = device_ms(lambda: block(x, cond, time_embed))
-        with eager_chain():
-            eager_ms = device_ms(lambda: block(x, cond, time_embed))
+    gemm = [yardstick.family(name) == "gemm" for name, _ in kernels]
+    others = [(name[:90], count) for (name, count), g in zip(kernels, gemm) if not g]
     row = {"max_rel_err": err, "calls_profiled": calls, "kernels": sum(c for _, c in kernels),
-           "gemm_kernels": sum(c for name, c in kernels if _family(name) == "gemm"),
-           "other_kernels": others, "fused_ms": statistics.median(fused_ms),
-           "eager_chain_ms": statistics.median(eager_ms), "card": card}
+           "gemm_kernels": sum(c for (_, c), g in zip(kernels, gemm) if g),
+           "other_kernels": others, "card": card}
     print("convnext chain block " + json.dumps(row))
     if not err <= BLOCK_TOL:
         raise AssertionError(f"a block's eval form through the kernels is off the eager chain: {row}")
@@ -1424,9 +1179,8 @@ def chain_serving(card: str) -> dict:
     counts every block as fused (mel_24k_base at 4 steps: 4 cond-encoder
     blocks and 4 steps x 3 branches x 8, 100; the 44.1 kHz stream chunk at 1
     step, 28) and none eager, the bf16 build every block eager; the call
-    against the eager chain on the same x0; the device time by family of
-    one bulk call (no depthwise conv left); bulk calls and replayed stream
-    chunks timed in turns, kernels and eager chain."""
+    against the eager chain on the same x0; no depthwise conv kernel left in
+    a bulk call. Returns the two fused paths' counters by label."""
     model = get_model("mel_24k_base", device="cuda", seed=0)
     mel = torch.from_numpy(np.random.RandomState(5).randn(16, 100, 872).astype(np.float32))
     model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
@@ -1457,38 +1211,15 @@ def chain_serving(card: str) -> dict:
     counts = chain_counts()
     if counts["fused_blocks"] or counts["eager_blocks"] != 28:
         raise AssertionError(f"bf16 serving counted {counts}, expected 28 eager blocks")
-    rows["bf16_1_step"] = counts
     del bf16
 
-    families, _ = device_families(lambda: eager_infer(model, mel, 4, 0))
-    if "conv_depthwise" in families:
-        raise AssertionError(f"a depthwise conv kernel ran on the fused path: {families}")
-    with eager_chain():
-        eager_families, _ = device_families(lambda: eager_infer(model, mel, 4, 0))
-    rows["bulk_by_family_ms"] = {"kernels": families, "eager_chain": eager_families}
-
-    audio_s = 16 * 872 * 256 / 24000
-    times = {"kernels": [], "eager_chain": []}
-    for key in ("kernels", "eager_chain", "eager_chain", "kernels"):
-        with eager_chain() if key == "eager_chain" else contextlib.nullcontext():
-            times[key] += time_calls(lambda: eager_infer(model, mel, 4, 0), calls=5)
-    rows["bulk_call_ms"] = {k: statistics.median(v) for k, v in times.items()}
-    rows["bulk_xrt"] = {k: audio_s / v * 1e3 for k, v in rows["bulk_call_ms"].items()}
-
-    # replayed chunks: one graph captured through the kernels, one through
-    # the eager chain, each on its own model handle, replayed in turns
-    graphs = {"kernels": VocoderModel(model44.module, model44.config, model44.device),
-              "eager_chain": VocoderModel(model44.module, model44.config, model44.device)}
-    for key, vm in graphs.items():
-        with eager_chain() if key == "eager_chain" else contextlib.nullcontext():
-            for seed in (1, 1, 2):
-                vm.infer(chunk, n_timesteps=1, seed=seed)
-    times = {key: [] for key in graphs}
-    for key in ("kernels", "eager_chain", "eager_chain", "kernels"):
-        times[key] += time_calls(lambda: graphs[key].infer(chunk, n_timesteps=1, seed=3))
-    rows["stream_chunk_replay_ms"] = {k: statistics.median(v) for k, v in times.items()}
-    rows["card"] = card
-    print("convnext chain serving " + json.dumps(rows))
+    with kernels_run() as runs:
+        eager_infer(model, mel, 4, 0)
+    if runs["by_family"]["conv_depthwise"]:
+        raise AssertionError(f"a depthwise conv kernel ran on the fused path: {runs['by_family']}")
+    print("convnext chain serving " + json.dumps({**rows, "bf16_1_step": counts,
+                                                  "bulk_kernels_by_family": runs["by_family"],
+                                                  "card": card}))
     return rows
 
 
@@ -1519,8 +1250,7 @@ def convnext_chain_phase(card: str) -> list:
         entries.append({
             "name": name, "route": "cuda", "source": "flow2gan_tpu_torch/csrc/convnext_chain.cu",
             "replaces": "none (XLA fused the chain on the TPU: flow2gan_tpu/models/convnext.py:52-117)",
-            "launches_by_path": {k: v[launches] for k, v in serving.items()
-                                 if isinstance(v, dict) and launches in v},
+            "launches_by_path": {k: v[launches] for k, v in serving.items()},
             "ms": sum(s[f"{key}_ms"] for s in step),
             "plain_ms": sum(s[f"{key}_plain_ms"] for s in step),
             "bound_ms": sum(s[f"{key}_bound_ms"] for s in step), "bound_by": "bytes",
@@ -1605,39 +1335,30 @@ def capture_cycles(vm: VocoderModel, frames=(60, 94, 128), rounds: int = 3) -> d
     rounds at batch 16 and 1 step: each output equal to the eager path's,
     the allocator's reserved bytes after each round, which later rounds
     must not grow past the first's by an eighth (every capture runs on the
-    model's one capture stream into its one pool), and the host's ms of a
-    capturing call against an eager one."""
+    model's one capture stream into its one pool)."""
     rng = np.random.RandomState(23)
     mels = {f: rng.randn(16, 100, f).astype(np.float32) for f in frames}
-    reserved, ms = [], {"eager": [], "capture": []}
+    reserved = []
     before = graph_counts()["graph_captures"]
     for _ in range(rounds):
         for f, mel in mels.items():
-            for kind in ms:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
+            for kind in ("eager", "capture"):
                 out = vm.infer(mel, n_timesteps=1, seed=f)
-                torch.cuda.synchronize()
-                ms[kind].append((time.perf_counter() - t0) * 1e3)
                 if not torch.equal(out, eager_infer(vm, mel, 1, f)):
                     raise AssertionError(f"capture cycles: {kind} call at {f} frames differs")
         reserved.append(torch.cuda.memory_reserved(vm.device))
     captures = graph_counts()["graph_captures"] - before
     if captures != rounds * len(frames) or max(reserved[1:]) > reserved[0] * 9 / 8:
         raise AssertionError(f"capture cycles: {captures} captures, reserved bytes {reserved}")
-    return {"captures": captures, "reserved_bytes_by_round": reserved,
-            "eager_ms_median": statistics.median(ms["eager"]),
-            "capture_ms_median": statistics.median(ms["capture"])}
+    return {"captures": captures, "reserved_bytes_by_round": reserved}
 
 
-def graph_replay(card: str) -> int:
+def graph_replay(card: str) -> None:
     """22: `VocoderModel.infer`'s CUDA graphs on the card against the eager
     path, bit for bit (`check_graph_replays`): mel_44k_128band_512x_base at
     1 step on the stream shape, mel_24k_base at 1 and 4 steps at batch 16,
     in bf16, and token_24k_base; the profiler's kernels in replays; a 30 s
-    stream through `streaming_infer` against the eager stream; the host's
-    ms a chunk, eager and replayed. Returns the fused iSTFT kernels the
-    profiler saw run over the stream."""
+    stream through `streaming_infer` against the eager stream."""
     rng = np.random.RandomState(22)
     model44 = get_model("mel_44k_128band_512x_base", device="cuda", seed=0)
     chunk = rng.randn(1, 128, 148).astype(np.float32)
@@ -1676,19 +1397,12 @@ def graph_replay(card: str) -> int:
                              "chunks")
     rows["stream_30s"] = {"chunks": chunks, **counts, "fused_istft_run": launches,
                           "fused_istft_counted": counted, "bitwise_equal": True}
-    with untraced():
-        replay_ms = time_calls(lambda: model44.infer(chunk, n_timesteps=1).cpu())
-        eager_ms = time_calls(lambda: eager_infer(model44, chunk, 1, 0).cpu())
-    rows["host_ms_per_chunk"] = {"replayed_median": statistics.median(replay_ms),
-                                 "eager_median": statistics.median(eager_ms),
-                                 "replayed_min": min(replay_ms), "eager_min": min(eager_ms)}
     print("graph replay " + json.dumps({**rows, "card": card}))
-    return launches
 
 
-def bf16_trainer(card: str, root: Path) -> dict:
+def bf16_trainer(card: str, root: Path) -> None:
     """`bin/pretrain.py --use-bf16` for 8 steps on half the corpus of phase
-    10; returns the two kernels' launches over the run."""
+    10."""
     recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:128]
     half = root / "train_half.jsonl.gz"
     write_recording_manifest(recs, half)
@@ -1702,35 +1416,27 @@ def bf16_trainer(card: str, root: Path) -> dict:
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     tracing.drain()
-    start = time.perf_counter()
     history = pretrain.run(args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     steps = len(history)
     if steps != 8 or launches != {"forward": 3 * (8 + 2), "adjoint": 3 * 8}:
         raise AssertionError(f"bf16 trainer ran {steps} steps with launches {launches}")
     losses = [h["loss"] for h in history]
-    ms = [h["ms"] for h in history[2:]]
-    med = statistics.median(ms)
     print("bf16 trainer " + json.dumps({
         "config": "mel_24k_base", "compute_dtype": "bfloat16", "batch": 16,
         "seconds_per_item": 1.5, "steps": steps, "loss_curve": losses,
-        "clip_scale": [h["clip_scale"] for h in history], "first_step_ms": history[0]["ms"],
-        "step_ms_median": med, "step_ms_min": min(ms), "step_ms_max": max(ms),
-        "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall_s,
+        "clip_scale": [h["clip_scale"] for h in history],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "card": card}))
     if not all(math.isfinite(x) for x in losses) or not statistics.median(losses[-3:]) < losses[0]:
         raise AssertionError(f"the bf16 training loss is not finite or does not fall: {losses}")
-    profile_train_step(card, med, "bfloat16")
-    return launches
 
 
-def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
+def clis(card: str, root: Path, exp: Path, averaged: Path) -> None:
     """bin/infer over a manifest of corpus files with the windowed average
     of phase 10's epochs, and bin/infer_dir on a directory of them, whole and
-    in 50-frame chunks; returns each run's launches (bin/infer_dir's: the
+    in 50-frame chunks, each run's launches checked (bin/infer_dir's: the
     kernels the profiler saw run)."""
     recs = read_recording_manifest(root / "valid" / "recordings.jsonl.gz")[:6]
     cli = root / "cli"
@@ -1778,7 +1484,6 @@ def clis(card: str, root: Path, exp: Path, averaged: Path) -> dict:
                                 "launches": launches, "chunks_per_file": chunks,
                                 "chunked_vs_whole": diffs,
                                 "native_wav_reader_crops": native_audio.reads, "card": card}))
-    return launches
 
 
 def disc_tensors(judgements) -> list:
@@ -1840,11 +1545,11 @@ def hinge_parts(disc, audio, fakes) -> list:
     return [[g.double() for g in part] for part in parts]
 
 
-def gan_grads_card_vs_cpu(card: str) -> dict:
+def gan_grads_card_vs_cpu(card: str) -> None:
     """The D and G objectives of full mel_24k_base with the full
     discriminators at 1 Euler step, batch 2 x 1 s, card against CPU with the
     same weights and draws: the loss and every gradient of the objective's
-    own side. Returns each objective's (forward, adjoint) launches.
+    own side, and each objective's (forward, adjoint) launches.
 
     Each tensor's error is held to GRAD_TENSOR_TOL of its scale plus four
     times its floor, the whole gradient's to GRAD_TOL plus twice the whole
@@ -1942,7 +1647,6 @@ def gan_grads_card_vs_cpu(card: str) -> dict:
         if not (finite and loss_err <= LOSS_TOL and ratio[worst] <= 1.0
                 and total <= GRAD_TOL * total_scale + 2 * total_floor):
             raise AssertionError(f"card and CPU disagree on the {side.upper()} objective")
-    return launches
 
 
 def run_counting_steps(module, factory: str, args):
@@ -1985,7 +1689,8 @@ def launches_by_kind(calls) -> dict:
 def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
     """`bin/finetune.py` on mel_24k_base at 4 Euler steps from the averaged FM
     model on phase 10's corpus; checks the launches of every step and
-    returns them with the run's timings and its experiment directory."""
+    returns the run's (forward, adjoint) launches and its experiment
+    directory."""
     exp = root / "exp_gan"
     args = finetune.get_parser().parse_args([
         "--model-name", "mel_24k_base", "--n-timesteps", str(GAN_STEPS), "--batch-size", "16",
@@ -1997,10 +1702,8 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     tracing.drain()
-    start = time.perf_counter()
     history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = 3 * GAN_STEPS
     sides = [h["side"] for h in history]
@@ -2023,88 +1726,28 @@ def gan_finetune(card: str, root: Path, averaged: Path) -> dict:
              / len(last[side]) for side in ("generator", "discriminator")}
     if not (moved["generator"] > 0.9 and moved["discriminator"] > 0.9):
         raise AssertionError(f"fine-tuning did not move both sides: {moved}")
-    ms = {side: [h["ms"] for h in history if h["side"] == side][2:] for side in ("D", "G")}
-    med = {side: statistics.median(v) for side, v in ms.items()}
     print("GAN fine-tuner " + json.dumps({
         "config": "mel_24k_base", "n_timesteps": GAN_STEPS, "batch": 16, "seconds_per_item": 1.5,
         "batches": len(history), "sides": "".join(sides),
         "loss_d": [h["loss"] for h in history if h["side"] == "D"],
         "loss_g": [h["loss"] for h in history if h["side"] == "G"],
         "clip_scale": [h["clip_scale"] for h in history],
-        "d_step_ms_median": med["D"], "d_step_ms_min": min(ms["D"]), "d_step_ms_max": max(ms["D"]),
-        "g_step_ms_median": med["G"], "g_step_ms_min": min(ms["G"]), "g_step_ms_max": max(ms["G"]),
-        "audio_s_per_g_step_s": 16 * 1.5 / med["G"] * 1e3,
-        "first_d_step_ms": history[0]["ms"], "first_g_step_ms": history[GAN_WARMUP]["ms"],
-        "peak_memory_gb": peak_gb, "run_wall_s": wall_s, "moved_share": moved,
-        "launches": launches, "card": card}))
-    return {"launches": launches, "d_ms": med["D"], "g_ms": med["G"], "exp": exp}
+        "peak_memory_gb": peak_gb, "moved_share": moved, "launches": launches, "card": card}))
+    return (launches["forward"], launches["adjoint"]), exp
 
 
-def gan_step_profiles(card: str, averaged: Path, d_ms: float, g_ms: float) -> dict:
-    """One 4-step D step and one G step (batch 16 x 1.5 s) by kernel family,
-    the discriminators' own device time in each, measured alone, and the
-    busy share against the fine-tuner's median steps; then the G step with
-    and without `--remat-rollout`. Returns the (forward, adjoint) launches
-    of the plain and the remat G step."""
+def gan_remat(card: str, averaged: Path) -> None:
+    """One 4-step G step (batch 16 x 1.5 s) from the averaged FM model with
+    `--remat-rollout` and without: loss and gradients within REMAT_TOL, the
+    launches of each, and each one's peak memory."""
     gen, disc, mel, recon = gan_models("cuda", averaged)
-    opt_g = ScaledAdam(gen.named_parameters(), clipping_scale=2.0)
-    opt_d = ScaledAdam(disc.named_parameters(), clipping_scale=2.0)
-    d_step, g_step, _ = make_gan_steps(gen, disc, mel, recon, opt_g, opt_d, lambda b: 1e-4,
-                                       lambda b: 1e-3, n_timesteps=GAN_STEPS)
     audio = torch.from_numpy(voiced(np.random.RandomState(41), 16, 36000)).cuda()
     batch = {"audio": audio, "audio_lens": torch.full((16,), 36000, device="cuda")}
-
-    def draws(train, i):
-        return gen.draw_rollout(16, 141, GAN_STEPS, step_generator(0, i, "cuda"), train)
-
-    for i in range(2):
-        d_step(batch, draws(False, 2 * i))
-        g_step(batch, draws(True, 2 * i + 1))
-    counts = {"D": [], "G": []}
-    fams = {"D": device_families(lambda: d_step(batch, draws(False, 10)), family=_gan_family,
-                                 kernels=counts["D"])[0],
-            "G": device_families(lambda: g_step(batch, draws(True, 11)), family=_gan_family,
-                                 kernels=counts["G"])[0]}
-    # the discriminators' part of each step, alone: D judges real and fake
-    # and backward reaches its parameters; G judges real (no graph) and fake,
-    # and backward reaches the fake waveform only
-    with torch.no_grad():
-        fake = gen.rollout(mel(audio), draws(False, 12), batch["audio_lens"], GAN_STEPS)[..., :36000]
-    params_d = list(disc.parameters())
-
-    def d_part():
-        (rmp, rmr), (fmp, fmr) = disc.judge(audio), disc.judge(fake)
-        loss = discriminator_loss(rmp[0], fmp[0]) + 0.1 * discriminator_loss(rmr[0], fmr[0])
-        loss.backward(inputs=params_d)
-
-    def g_part():
-        leaf = fake.clone().requires_grad_()
-        with torch.no_grad():
-            real = disc.judge(audio)
-        fj = disc.judge(leaf)
-        loss = sum(generator_loss(f[0]) + feature_matching_loss(r[1], f[1]) for r, f in zip(real, fj))
-        loss.backward(inputs=[leaf])
-
-    disc_ms = {"D": statistics.median(device_ms(d_part, samples=5)),
-               "G": statistics.median(device_ms(g_part, samples=5))}
-    disc.zero_grad(set_to_none=True)
-    wall = {"D": d_ms, "G": g_ms}
-    for side in ("D", "G"):
-        total = sum(fams[side].values())
-        if not total:
-            raise AssertionError("torch.profiler recorded no device time for a GAN step")
-        print(f"profile GAN {side} step " + json.dumps({
-            "config": "mel_24k_base", "n_timesteps": GAN_STEPS, "batch": 16, "seconds_per_item": 1.5,
-            "device_ms": total, "device_kernels": sum(counts[side]), "by_family_ms": fams[side],
-            "discriminators_alone_ms": disc_ms[side],
-            "discriminators_share_of_device_ms": disc_ms[side] / total,
-            "step_ms_median_fine_tuner": wall[side], "device_busy_share": total / wall[side],
-            "card": card}))
 
     # --remat-rollout against plain, with the same weights and draws; plain
     # twice, to show what the card's own run-to-run order changes
     params_g = list(gen.parameters())
-    g_draws = draws(True, 13)
+    g_draws = gen.draw_rollout(16, 141, GAN_STEPS, step_generator(0, 13, "cuda"), True)
     runs = {}
     for name, remat in (("plain", False), ("remat", True), ("plain_again", False)):
         _, g_fn = make_gan_loss_fns(gen, disc, mel, recon, n_timesteps=GAN_STEPS, remat_rollout=remat)
@@ -2141,13 +1784,12 @@ def gan_step_profiles(card: str, averaged: Path, d_ms: float, g_ms: float) -> di
     if (plain["launches"] != (n, n) or remat["launches"] != (n + 2 * GAN_STEPS, n)
             or not (report["loss_rel_err"] <= REMAT_TOL and report["grad_rel_err_all"] <= REMAT_TOL)):
         raise AssertionError(f"remat disagrees with plain: {report}")
-    return {"plain": plain["launches"], "remat": remat["launches"]}
 
 
-def gan_clis(card: str, root: Path, exp: Path) -> int:
+def gan_clis(card: str, root: Path, exp: Path) -> None:
     """`save_averaged_model --load-gan` on the fine-tuner's checkpoints,
     served at 4 steps, and `bin/infer --load-gan` over the CLI phase's corpus
-    files; returns bin/infer's launches."""
+    files, with bin/infer's launches."""
     out = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "2", "--avg", "2",
                                     "--load-gan", "true"])
     served = get_model("mel_24k_base", checkpoint=out, device="cuda")
@@ -2173,7 +1815,6 @@ def gan_clis(card: str, root: Path, exp: Path) -> int:
     print("GAN CLIs " + json.dumps({"averaged": out.name, "served_shape": list(wav.shape),
                                     "infer_files": len(written), "infer_launches": launches,
                                     "card": card}))
-    return launches
 
 
 # --------------------------------------------------- data parallelism (16)
@@ -2351,21 +1992,19 @@ def compare_steps(name: str, ours: dict, ref: dict, floors=None) -> dict:
             "launches_one": ref[name]["launches"]}
 
 
-def data_parallel_steps(card: str) -> dict:
+def data_parallel_steps(card: str) -> None:
     """Phases 16a and 16b: the FM step, then the 4-step D and G steps, as 2
     ranks of 8 against one process of 16, with the same weights, batch and
     draws. One rank per card over NCCL where there are 2 cards; else both
     ranks on card 0 over gloo (every rank on the named card), and the FM
     step once more in a one-rank NCCL group, so that NCCL's init and
-    all-reduce run on the card. Returns the per-rank launches."""
+    all-reduce run on the card; the per-rank launches of each step."""
     per_card = torch.cuda.device_count() >= DIST_WORLD
     ref = dist_steps({"floors": True})
     torch.cuda.empty_cache()
-    start = time.perf_counter()
     ranks = spawn_ranks(DIST_WORLD, "dist_steps", {"group": "port",
                                                    "device": "cuda" if per_card else "cuda:0"},
                         ROOT / "dist_steps")
-    wall_s = time.perf_counter() - start
     backend = ranks[0]["backend"]
     if backend != ("nccl" if per_card else "gloo") or any(not r["device"].startswith("cuda")
                                                            for r in ranks):
@@ -2385,7 +2024,7 @@ def data_parallel_steps(card: str) -> dict:
         "ranks_bitwise_equal_after_each_step": True,
         "floor": "one process's gradient as two halves of the batch, summed",
         "peak_gb_per_rank": {s: [r[s]["peak_gb"] for r in ranks] for s in ("d", "g")},
-        "spawned_run_wall_s": wall_s, **reports, "card": card}))
+        **reports, "card": card}))
     for side, want in expected.items():
         got = [r[side]["launches"] for r in ranks]
         if got != [want] * DIST_WORLD or any(r[side]["loss"] != ranks[0][side]["loss"] for r in ranks):
@@ -2401,58 +2040,29 @@ def data_parallel_steps(card: str) -> dict:
             {"backend": nccl["backend"], "device": nccl["device"], **report, "card": card}))
         if nccl["backend"] != "nccl" or nccl["fm"]["launches"] != (3, 3) or not report["ok"]:
             raise AssertionError(f"the one-rank NCCL group ran {nccl['backend']}, {report}")
-    return {side: ranks[0][side]["launches"] for side in expected}
 
 
 def dist_trainer_rank(spec: dict) -> dict:
     """`bin/pretrain.py` in this rank (it joins the group from torchrun's
-    environment), with every checkpoint write and every all-reduce's span
-    on the card recorded, step by step, and the last step's device time by
-    family (torch.profiler)."""
-    writes, spans, backends, marks, last = [], [], set(), [], {}
-    save, all_reduce, step = ckpt.save_checkpoint, torch.distributed.all_reduce, pretrain.fm_train_step
+    environment), with every checkpoint write recorded."""
+    writes, save = [], ckpt.save_checkpoint
 
     def recording(filename, *args, **kwargs):
         writes.append(Path(filename).name)
         return save(filename, *args, **kwargs)
 
-    def timed(tensor, *args, **kwargs):
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        work = all_reduce(tensor, *args, **kwargs)
-        stop.record()
-        spans.append((tensor.numel(), start, stop))
-        backends.add(torch.distributed.get_backend())
-        return work
-
-    def marked(*args, **kwargs):
-        marks.append(len(spans))
-        if len(marks) < spec["steps"]:
-            return step(*args, **kwargs)
-        last["families"] = device_families(lambda: last.update(out=step(*args, **kwargs)))[0]
-        return last["out"]
-
-    ckpt.save_checkpoint, torch.distributed.all_reduce = recording, timed
-    pretrain.fm_train_step = marked
+    ckpt.save_checkpoint = recording
     tracing.drain()
     history = pretrain.run(pretrain.get_parser().parse_args(spec["argv"]))
     torch.cuda.synchronize()
-    ms = [(n, a.elapsed_time(b)) for n, a, b in spans]
-    per_step = [ms[i:j] for i, j in zip(marks, marks[1:] + [len(ms)])]
-    return {"writes": writes, "history": history,
-            "launches": (n_istft(), n_adjoint()),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "backend": ",".join(sorted(backends)),
-            "all_reduce_by_step": [{"gradient_buckets_ms": sum(t for n, t in s if n >= 1 << 20),
-                                    "small_ms": sum(t for n, t in s if n < 1 << 20),
-                                    "calls": len(s)} for s in per_step],
-            "last_step_device_ms_by_family": last["families"]}
+    return {"writes": writes, "history": history, "launches": (n_istft(), n_adjoint()),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
-def data_parallel_trainer(card: str, root: Path) -> dict:
+def data_parallel_trainer(card: str, root: Path) -> None:
     """Phase 16c: `bin/pretrain.py` as 2 processes (global batch 16, 8 per
-    rank, 1 epoch of 96 recordings: 6 steps), as torchrun would start them;
-    returns the per-rank launches."""
+    rank, 1 epoch of 96 recordings: 6 steps), as torchrun would start them:
+    the ranks' losses, their launches, and only rank 0 writing."""
     recs = read_recording_manifest(root / "train" / "recordings.jsonl.gz")[:96]
     manifest = root / "dist_train.jsonl.gz"
     write_recording_manifest(recs, manifest)
@@ -2464,33 +2074,15 @@ def data_parallel_trainer(card: str, root: Path) -> dict:
             "--valid-interval", "0", "--device", device, "--exp-dir", str(exp),
             "--tensorboard", "false", "--train-recordings", str(manifest)]
     steps = len(recs) // DIST_BATCH
-    start = time.perf_counter()
-    ranks = spawn_ranks(DIST_WORLD, "dist_trainer_rank",
-                        {"group": "trainer", "argv": argv, "steps": steps},
+    ranks = spawn_ranks(DIST_WORLD, "dist_trainer_rank", {"group": "trainer", "argv": argv},
                         root / "dist_trainer_out")
-    wall_s = time.perf_counter() - start
-    # medians over the steps after the first two, as the trainer phase's;
-    # the last step ran under the profiler and is left out of the times
-    ms = [statistics.median([h["ms"] for h in r["history"][2:-1]]) for r in ranks]
-    per_step = [{k: statistics.median(s[k] for s in r["all_reduce_by_step"][2:-1])
-                 for k in ("gradient_buckets_ms", "small_ms", "calls")} for r in ranks]
-    # busy: the rank's own work; NCCL's kernels also count their waits
-    device_ms = [sum(v for k, v in r["last_step_device_ms_by_family"].items()
-                     if k != NCCL_FAMILY) for r in ranks]
     files = sorted(p.name for p in exp.rglob("*") if p.is_file())
-    report = {"config": "mel_24k_base", "processes": DIST_WORLD, "backend": ranks[0]["backend"],
-              "device": device, "global_batch": DIST_BATCH, "seconds_per_item": 1.5,
+    report = {"config": "mel_24k_base", "processes": DIST_WORLD, "device": device,
+              "global_batch": DIST_BATCH, "seconds_per_item": 1.5,
               "steps": steps, "loss_curve": [h["loss"] for h in ranks[0]["history"]],
-              "step_ms_median_per_rank": ms,
-              "audio_s_per_wall_s": DIST_BATCH * 1.5 / max(ms) * 1e3,
               "peak_memory_gb_per_rank": [r["peak_gb"] for r in ranks],
-              "all_reduce_per_step_per_rank": per_step,
-              "device_ms_per_step_per_rank": device_ms,
-              "device_busy_share_per_rank": [d / m for d, m in zip(device_ms, ms)],
-              "device_ms_by_family_per_rank": [r["last_step_device_ms_by_family"] for r in ranks],
               "launches_per_rank": [r["launches"] for r in ranks],
-              "writes_per_rank": [r["writes"] for r in ranks], "files": files,
-              "run_wall_s": wall_s, "card": card}
+              "writes_per_rank": [r["writes"] for r in ranks], "files": files, "card": card}
     print("data-parallel trainer " + json.dumps(report))
     logs = [f for f in files if f.startswith("log-train")]
     if ([len(r["history"]) for r in ranks] != [steps] * DIST_WORLD
@@ -2502,7 +2094,6 @@ def data_parallel_trainer(card: str, root: Path) -> dict:
             or any(r["writes"] for r in ranks[1:]) or len(logs) != 1):
         raise AssertionError(f"the data-parallel trainer: {report}")
     shutil.rmtree(exp, ignore_errors=True)
-    return {"steps": steps, "launches": ranks[0]["launches"]}
 
 
 # ------------------------------------------------------------- resume (17)
@@ -2615,11 +2206,9 @@ def token_codebook(card: str, root: Path) -> Path:
     mels on the card, k-means on the CPU; then its tokens on the card against
     the CPU tokenizer's, with the tie rule. Returns the codebook's path."""
     out = root / "tokens" / "codebook.npz"
-    start = time.perf_counter()
     train_tokenizer.main(["--model-name", "token_24k_base", "--recordings",
                           str(root / "train" / "recordings.jsonl.gz"), "--output", str(out),
                           "--max-frames", "16384", "--iters", "6", "--device", "cuda"])
-    fit_s = time.perf_counter() - start
     cpu_tok = MelKMeansTokenizer.from_file(out, expect_config=get_generator_config("token_24k_base"))
     card_tok = copy.deepcopy(cpu_tok).cuda()
     audio = torch.from_numpy(voiced(np.random.RandomState(31), 16, 24000))
@@ -2630,17 +2219,16 @@ def token_codebook(card: str, root: Path) -> Path:
     agree = tokens_agree(ids_card, ids_cpu, scores)
     print("token codebook " + json.dumps({
         "config": "token_24k_base", "vocab": cpu_tok.vocab_size, "fit_frames": 16384,
-        "iters": 6, "fit_wall_s": fit_s, "ids_used_of_1024": len(ids_cpu.unique()),
+        "iters": 6, "ids_used_of_1024": len(ids_cpu.unique()),
         "card_vs_cpu_tokens": agree, "card": card}))
     return out
 
 
-def token_serving(card: str, codebook: Path) -> dict:
+def token_serving(card: str, codebook: Path) -> None:
     """18b: token_24k_base served through `get_model(tokenizer=...)` at batch
     16 x 94 frames of ids in host memory, 1/2/4 steps: the launches (3 per
-    Euler step), ms per call and x-real-time in turns with mel_24k_base's,
-    card against CPU through infer_from_noise, and `reconstruct`. Returns the
-    launches of the serving calls and of `reconstruct`."""
+    Euler step), card against CPU through infer_from_noise, and
+    `reconstruct`."""
     model = get_model("token_24k_base", device="cuda", seed=0, tokenizer=codebook)
     ids = np.random.RandomState(0).randint(0, 1024, (16, 94))
     tracing.drain()
@@ -2653,33 +2241,10 @@ def token_serving(card: str, codebook: Path) -> dict:
         if n_istft() - before != 3 * n:
             raise AssertionError(f"token {n}-step call launched the kernel "
                                  f"{n_istft() - before} times, expected {3 * n}")
-    launches = {"serving": (n_istft(), n_adjoint())}
     if n_adjoint():
         raise AssertionError(f"token serving launched the adjoint {n_adjoint()} times")
     print(f"token serving: token_24k_base infer at 1/2/4 steps, batch 16, fused_istft launches "
-          f"{launches['serving'][0]}")
-
-    mel_model = get_model("mel_24k_base", device="cuda", seed=0)
-    mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
-    audio_s = 16 * 24064 / 24000
-    one_step = {}
-    for n in (1, 2, 4):
-        row = {"n_timesteps": n, "batch": 16, "frames": 94, "audio_s": audio_s, "card": card}
-        for name, fn in (("mel_24k_base", lambda: eager_infer(mel_model, mel, n, 0)),
-                         ("token_24k_base", lambda: eager_infer(model, ids, n, 0)),
-                         ("mel_24k_base_again", lambda: eager_infer(mel_model, mel, n, 0)),
-                         ("token_24k_base_again", lambda: eager_infer(model, ids, n, 0))):
-            ms = time_calls(fn)
-            med = statistics.median(ms)
-            row[name] = {"calls": len(ms), "ms_median": med, "ms_min": min(ms), "ms_max": max(ms),
-                         "x_real_time_median": audio_s / med * 1e3}
-            if n == 1:
-                one_step.setdefault(name.removesuffix("_again"), []).append(med)
-        print("token serving timing " + json.dumps(row))
-    # one 1-step call of each, device time by family
-    profile_one_call(card, mel_model, mel, statistics.mean(one_step["mel_24k_base"]), "f32_mel")
-    profile_one_call(card, model, ids, statistics.mean(one_step["token_24k_base"]), "f32_token")
-    del mel_model
+          f"{n_istft()}")
 
     cpu = get_model("token_24k_base", device="cpu", seed=0).module
     rng = np.random.RandomState(2)
@@ -2701,20 +2266,17 @@ def token_serving(card: str, codebook: Path) -> dict:
     wav = model.reconstruct(0.1 * torch.randn(4, 24000, generator=torch.Generator().manual_seed(3)),
                             n_timesteps=1)
     torch.cuda.synchronize()
-    launches["reconstruct"] = (n_istft(), n_adjoint())
-    if wav.shape != (4, 24064) or not torch.isfinite(wav).all() or launches["reconstruct"] != (3, 0):
-        raise AssertionError(f"token reconstruct gave {tuple(wav.shape)}, launches "
-                             f"{launches['reconstruct']}")
+    launches = (n_istft(), n_adjoint())
+    if wav.shape != (4, 24064) or not torch.isfinite(wav).all() or launches != (3, 0):
+        raise AssertionError(f"token reconstruct gave {tuple(wav.shape)}, launches {launches}")
     print(f"token reconstruct: (4, 24000) waveform -> tokens -> {tuple(wav.shape)}, finite, "
           f"3 launches")
-    return launches
 
 
-def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
+def token_trainer(card: str, root: Path, codebook: Path) -> Path:
     """18d: `bin/pretrain.py --model-name token_24k_base --tokenizer` for 8
     steps at batch 16 x 1.5 s on half of phase 10's corpus, every step's
-    launches checked; then its average. Returns the launches over the run
-    and the averaged model's path."""
+    launches checked; then its average. Returns the averaged model's path."""
     exp = root / "tokens" / "exp_fm"
     args = pretrain.get_parser().parse_args([
         "--model-name", "token_24k_base", "--tokenizer", str(codebook), "--batch-size", "16",
@@ -2725,10 +2287,8 @@ def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
         "--valid-recordings", str(root / "valid" / "recordings.jsonl.gz")])
     torch.cuda.reset_peak_memory_stats()
     tracing.drain()
-    start = time.perf_counter()
     history, calls = run_counting_steps(pretrain, "fm_train_step", args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     launches = {"forward": n_istft(), "adjoint": n_adjoint()}
     steps = len(history)
     if steps != TOKEN_STEPS or {c[1:] for c in calls} != {(3, 3)} or len(calls) != steps or \
@@ -2737,29 +2297,25 @@ def token_trainer(card: str, root: Path, codebook: Path) -> tuple:
     losses = [h["loss"] for h in history]
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite token training loss: {losses}")
-    ms = [h["ms"] for h in history[2:]]
-    med = statistics.median(ms)
     print("token trainer " + json.dumps({
         "config": "token_24k_base", "batch": 16, "seconds_per_item": 1.5, "steps": steps,
         "launches_per_step": calls[0][1:], "loss_curve": losses,
-        "clip_scale": [h["clip_scale"] for h in history], "first_step_ms": history[0]["ms"],
-        "step_ms_median": med, "step_ms_min": min(ms), "step_ms_max": max(ms),
-        "audio_s_per_wall_s": 16 * 1.5 / med * 1e3,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "run_wall_s": wall_s,
+        "clip_scale": [h["clip_scale"] for h in history],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "card": card}))
     averaged = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "1", "--avg", "1"])
     for path in exp.glob("*.pt"):
         if path != averaged:
             path.unlink()
-    profile_train_step(card, med, tokenizer=MelKMeansTokenizer.from_file(codebook))
-    return launches, averaged
+    return averaged
 
 
-def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
+def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> tuple:
     """18e: `bin/finetune.py --tokenizer` on token_24k_base at 4 Euler steps,
     batch 16 x 1.5 s, from 18d's average, 8 batches (2 D-only); every step's
     launches checked: D 12 forward, G 12 forward and 12 adjoint; the run
-    exported both ways (`check_gan_exports`)."""
+    exported both ways (`check_gan_exports`). Returns the run's (forward,
+    adjoint) launches."""
     exp = root / "tokens" / "exp_gan"
     args = finetune.get_parser().parse_args([
         "--model-name", "token_24k_base", "--tokenizer", str(codebook),
@@ -2791,18 +2347,16 @@ def token_finetune(card: str, root: Path, codebook: Path, averaged: Path) -> dic
     windowed = save_averaged_model.main(["--exp-dir", str(exp), "--epoch", "1", "--avg", "1",
                                          "--load-gan", "true", "--output", str(exp / "generator.pt")])
     check_gan_exports(exp, windowed, exp / "last" / "generator.pt")
-    ms = {side: [h["ms"] for h in history if h["side"] == side][1:] for side in ("D", "G")}
     print("token fine-tuner " + json.dumps({
         "config": "token_24k_base", "n_timesteps": GAN_STEPS, "batch": 16,
         "seconds_per_item": 1.5, "sides": sides,
         "loss_d": [h["loss"] for h in history if h["side"] == "D"],
         "loss_g": [h["loss"] for h in history if h["side"] == "G"],
-        "d_step_ms_median": statistics.median(ms["D"]), "g_step_ms_median": statistics.median(ms["G"]),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
         "last_weights_export": "equals epoch-1's generator; the windowed export differs",
         "card": card}))
     shutil.rmtree(exp, ignore_errors=True)
-    return launches
+    return launches["forward"], launches["adjoint"]
 
 
 def check_gan_exports(run: Path, windowed: Path, last: Path) -> None:
@@ -2822,14 +2376,14 @@ def check_gan_exports(run: Path, windowed: Path, last: Path) -> None:
         raise AssertionError(f"{run}: the windowed export equals the last weights")
 
 
-def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
+def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> None:
     """18f: `bin/infer --tokenizer` over phase 14's manifest, and
     `bin/infer_dir` on its wavs with `--tokenizer` and on their tokens
     (.npy, from the codebook on the card) with `--tokens true`, whole and in
     50-frame chunks; checked as phase 14 checks the mel CLIs, and each token
-    run against the wav run that tokenized the same audio. Returns each
-    run's launches (forward, adjoint; bin/infer_dir's: the kernels the
-    profiler saw run)."""
+    run against the wav run that tokenized the same audio; each run's
+    launches (forward, adjoint; bin/infer_dir's: the kernels the profiler
+    saw run)."""
     cli, out = root / "cli", root / "tokens" / "cli"
     recs = read_recording_manifest(cli / "recordings.jsonl.gz")
     common = ["--model-name", "token_24k_base", "--checkpoint", str(averaged), "--device", "cuda"]
@@ -2886,27 +2440,27 @@ def token_clis(card: str, root: Path, codebook: Path, averaged: Path) -> dict:
     print("token CLIs " + json.dumps({"infer_files": len(written), "infer_dir_files": 4,
                                       "launches": launches, "chunks_per_file": chunks,
                                       "outputs": diffs, "card": card}))
-    return launches
 
 
-def token_family(card: str, root: Path, clock: PhaseClock) -> dict:
-    """Phase 18, the token family at full width: 18a-f, each timed on
-    `clock`. Returns each path's launches of both kernels."""
+def token_family(card: str, root: Path, clock: PhaseClock) -> tuple:
+    """Phase 18, the token family at full width: 18a-f, each followed by
+    its phase line on `clock`. Returns the token fine-tuner's (forward,
+    adjoint) launches."""
     codebook = token_codebook(card, root)
     clock.done("18a_token_codebook")
-    serving = token_serving(card, codebook)
+    token_serving(card, codebook)
     clock.done("18b_token_serving")
-    fm_step = [grads_card_vs_cpu(card, "token_24k_base", seed, float64="check") for seed in (5, 6)]
+    for seed in (5, 6):
+        grads_card_vs_cpu(card, "token_24k_base", seed, float64="check")
     clock.done("18c_token_grads_card_vs_cpu")
-    train_launches, averaged = token_trainer(card, root, codebook)
+    averaged = token_trainer(card, root, codebook)
     clock.done("18d_token_trainer")
     gan = token_finetune(card, root, codebook, averaged)
     clock.done("18e_token_finetune")
-    cli_launches = token_clis(card, root, codebook, averaged)
+    token_clis(card, root, codebook, averaged)
     shutil.rmtree(root / "tokens", ignore_errors=True)
     clock.done("18f_token_clis")
-    return {"serving": serving, "fm_step": fm_step, "train": train_launches, "gan": gan,
-            "cli": cli_launches}
+    return gan
 
 
 # ------------------------------------------------------- observability (19)
@@ -3001,7 +2555,7 @@ def window_launches(calls: list, kinds=("FM", "D", "G")) -> tuple:
     return sum(c[1] for c in window), sum(c[2] for c in window)
 
 
-def observability_pretrain(card: str, root: Path, test: Path, base_step_ms: float) -> dict:
+def observability_pretrain(card: str, root: Path, test: Path) -> None:
     """19a: bin/pretrain.py on mel_24k_base with --tensorboard, --test-recordings
     (4 files) at --save-infer-steps 1,2,4, --profile-dir and --inf-check for
     16 steps at batch 16 x 1.5 s, validating at batches 8 and 16 (outside
@@ -3017,10 +2571,8 @@ def observability_pretrain(card: str, root: Path, test: Path, base_step_ms: floa
         "--test-recordings", str(test), "--save-infer-steps", "1,2,4",
         "--profile-dir", str(prof), "--inf-check", "true", "--tensorboard", "true"])
     tracing.drain()
-    start = time.perf_counter()
     history, calls = run_counting_steps(pretrain, "fm_train_step", args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     launches = (n_istft(), n_adjoint())
     # each validation: one batch of 16 (3 launches), then the 4 test files
     # synthesised at 1, 2 and 4 steps (3 launches a step)
@@ -3045,22 +2597,14 @@ def observability_pretrain(card: str, root: Path, test: Path, base_step_ms: floa
     best = ckpt.load_checkpoint(exp / "epoch-1.pt")["best_valid_loss"]
     if not math.isfinite(best) or any(h["clip_scale"] != 1.0 for h in history):
         raise AssertionError(f"19a: best_valid_loss {best}, clip {[h['clip_scale'] for h in history]}")
-    # the steps that write nothing: not the first two (allocation), not a
-    # log, validation or checkpoint step (8, 16), not the profiled window
-    quiet = [h["ms"] for h in history[2:] if h["batch_idx_train"] % 8
-             and not OBS_WINDOW[0] <= h["batch_idx_train"] <= OBS_WINDOW[1]]
     shutil.rmtree(exp)
-    out = {"steps": len(history), "launches": launches, "profiled_window": window,
-           "trace_kernel_events": traced, "event_tags": len(tags), "best_valid_loss": best,
-           "quiet_step_ms": quiet, "quiet_step_ms_median": statistics.median(quiet),
-           "phase_10_step_ms_median": base_step_ms,
-           "extra_ms_per_quiet_step": statistics.median(quiet) - base_step_ms,
-           "run_wall_s": wall_s, "card": card}
-    print("observability pretrain " + json.dumps(out))
-    return out
+    print("observability pretrain " + json.dumps({
+        "steps": len(history), "launches": launches, "profiled_window": window,
+        "trace_kernel_events": traced, "event_tags": len(tags), "best_valid_loss": best,
+        "card": card}))
 
 
-def observability_inf_check(card: str, root: Path) -> tuple:
+def observability_inf_check(card: str, root: Path) -> None:
     """19b: 4 steps with --inf-check, the third batch's first row NaN: the
     step is clipped to zero, the warnings name the dominant gradients and
     the first module whose output was not finite, the replay does not
@@ -3107,7 +2651,6 @@ def observability_inf_check(card: str, root: Path) -> tuple:
     print("observability inf-check " + json.dumps({
         "clip_scale": clips, "dominant": dominant[:3], "first_module": modules[0],
         "modules_named": len(modules), "launches": launches, "card": card}))
-    return launches
 
 
 def diagnostics_tables(log: list) -> dict:
@@ -3122,10 +2665,10 @@ def diagnostics_tables(log: list) -> dict:
 
 
 def observability_diagnostics(card: str, root: Path, module, argv: list, expected: tuple,
-                              label: str) -> dict:
+                              label: str) -> None:
     """19c (and the fine-tuner's in 19d): --print-diagnostics at batch 4 x
     1 s: 5 batches, the tables, the PReLU histograms, exit; the tables of
-    each kind counted, the pass's wall time and its launches."""
+    each kind counted, and the pass's launches."""
     exp = root / f"exp_diag_{label}"
     args = module.get_parser().parse_args(argv + [
         "--batch-size", "4", "--duration", "1.0", "--num-epochs", "1", "--num-workers", "4",
@@ -3135,10 +2678,8 @@ def observability_diagnostics(card: str, root: Path, module, argv: list, expecte
         "--train-recordings", str(root / "train" / "recordings.jsonl.gz")])
     tracing.drain()
     torch.cuda.reset_peak_memory_stats()
-    start = time.perf_counter()
     history = module.run(args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     launches = (n_istft(), n_adjoint())
     log = trainer_log(exp)
     tables = diagnostics_tables(log)
@@ -3147,14 +2688,13 @@ def observability_diagnostics(card: str, root: Path, module, argv: list, expecte
         raise AssertionError(f"19 diagnostics {label}: {len(history)} batches, launches "
                              f"{launches} against {expected}, tables {tables}, last {log[-1:]}")
     shutil.rmtree(exp)
-    out = {"trainer": label, "batches": len(history), "tables": tables, "run_wall_s": wall_s,
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
-           "card": card}
-    print("observability diagnostics " + json.dumps(out))
-    return out
+    print("observability diagnostics " + json.dumps({
+        "trainer": label, "batches": len(history), "tables": tables,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": launches,
+        "card": card}))
 
 
-def observability_finetune(card: str, root: Path, test: Path, averaged: Path) -> dict:
+def observability_finetune(card: str, root: Path, test: Path, averaged: Path) -> None:
     """19d: bin/finetune.py at 4 Euler steps with the full discriminators
     for 16 batches (D-only to batch 2) with --tensorboard, --test-recordings,
     --profile-dir and --inf-check, every step's launches checked; then
@@ -3171,10 +2711,8 @@ def observability_finetune(card: str, root: Path, test: Path, averaged: Path) ->
         "--test-recordings", str(test), "--profile-dir", str(prof), "--inf-check", "true",
         "--tensorboard", "true"])
     tracing.drain()
-    start = time.perf_counter()
     history, calls = run_counting_steps(finetune, "make_gan_steps", args)
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - start
     n = 3 * GAN_STEPS
     per_kind = {kind: sorted({(f, b) for k, f, b in calls if k == kind}) for kind in ("D", "G", "eval")}
     counts = {kind: sum(k == kind for k, _, _ in calls) for kind in ("D", "G", "eval")}
@@ -3206,34 +2744,32 @@ def observability_finetune(card: str, root: Path, test: Path, averaged: Path) ->
         raise AssertionError(f"19d: losses {[h['loss'] for h in history]}")
     shutil.rmtree(exp)
     by_kind = launches_by_kind(calls)
-    out = {"batches": len(history), "sides": sides, "launches": launches,
-           "d_steps": by_kind["D"], "g_steps": by_kind["G"], "validation": by_kind["eval"],
-           "profiled_window": window, "trace_kernel_events": traced, "event_tags": len(tags),
-           "clip_scale": [h["clip_scale"] for h in history], "run_wall_s": wall_s, "card": card}
-    print("observability finetune " + json.dumps(out))
+    print("observability finetune " + json.dumps({
+        "batches": len(history), "sides": sides, "launches": launches,
+        "d_steps": by_kind["D"], "g_steps": by_kind["G"], "validation": by_kind["eval"],
+        "profiled_window": window, "trace_kernel_events": traced, "event_tags": len(tags),
+        "clip_scale": [h["clip_scale"] for h in history], "card": card}))
     # 5 diagnostics batches, D D G D G: each a step, an eval-form rollout
     # (n) and the G objective through the train-form rollout (n and n)
-    diag = observability_diagnostics(
+    observability_diagnostics(
         card, root, finetune, ["--model-name", "mel_24k_base", "--n-timesteps", str(GAN_STEPS),
                                "--gen-start-batch-idx", "2", "--generator-model-path",
                                str(averaged)],
         (5 * 3 * n, 5 * n + 2 * n), "finetune")
-    return {**out, "diagnostics": diag}
 
 
-def observability(card: str, root: Path, averaged: Path, base_step_ms: float) -> dict:
+def observability(card: str, root: Path, averaged: Path) -> None:
     """Phase 19 on mel_24k_base, from phase 10's corpus and averaged model."""
     test = root / "obs_test.jsonl.gz"
     write_recording_manifest(read_recording_manifest(root / "valid" / "recordings.jsonl.gz")[:4],
                              test)
-    pre = observability_pretrain(card, root, test, base_step_ms)
-    inf = observability_inf_check(card, root)
+    observability_pretrain(card, root, test)
+    observability_inf_check(card, root)
     # 5 batches: each a step (3, 3), the eval-form loss (3) and the train-form
     # loss's forward and backward (3, 3)
-    diag = observability_diagnostics(card, root, pretrain, ["--model-name", "mel_24k_base"],
-                                     (5 * 9, 5 * 6), "pretrain")
-    gan = observability_finetune(card, root, test, averaged)
-    return {"pretrain": pre, "inf_check": inf, "diagnostics": diag, "finetune": gan}
+    observability_diagnostics(card, root, pretrain, ["--model-name", "mel_24k_base"],
+                              (5 * 9, 5 * 6), "pretrain")
+    observability_finetune(card, root, test, averaged)
 
 
 # ------------------------------------------------------------ the recipe (20)
@@ -3250,13 +2786,12 @@ def _finite_metrics(path: Path, keys) -> dict:
     return summary
 
 
-def recipe(card: str, root: Path) -> dict:
+def recipe(card: str, root: Path) -> None:
     """Phase 20: the recipe on the card through `run_libritts.sh` stages 1-6
     at mel_24k_base, its artifacts checked, then its inference stage again
     in-process, `bin/from_mel.py` and `bin/from_wav.py`, each with the
-    counters reset, and `recipes/infer_dir.sh`; returns each path's
-    (forward, adjoint) launches."""
-    t0 = time.perf_counter()
+    counters reset and its (forward, adjoint) launches checked, and
+    `recipes/infer_dir.sh`."""
     corpus, data, exp = root / "LibriTTS", root / "manifests", root / "exp"
     make_synthetic_corpus.main(["--corpus-dir", str(corpus), "--data-dir", str(root / "synthetic"),
                                 "--n-train", "16", "--n-test", "2", "--n-dev", "1",
@@ -3274,7 +2809,6 @@ def recipe(card: str, root: Path) -> dict:
     if proc.returncode != 0 or "Pipeline done." not in proc.stdout:
         raise AssertionError(f"run_libritts.sh exited {proc.returncode} after stages {stages}:\n"
                              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-    recipe_s = time.perf_counter() - t0
     manifests = {split: len(read_recording_manifest(data / f"libritts_recordings_{split}.jsonl.gz"))
                  for split in ("train_clean_100", "dev_clean", "test_clean")}
     if manifests != {"train_clean_100": 16, "dev_clean": 1, "test_clean": 2}:
@@ -3343,7 +2877,6 @@ def recipe(card: str, root: Path) -> dict:
         raise AssertionError(f"recipe launches {launches}, expected {expected}")
 
     # infer_dir.sh as a user runs it: the test WAVs, the mel above, the WAVs in chunks
-    t1 = time.perf_counter()
     wav_in = sorted((corpus / "test-clean").rglob("*.wav"))
     mel_in = root / "infer_dir_mels"
     mel_in.mkdir()
@@ -3371,16 +2904,13 @@ def recipe(card: str, root: Path) -> dict:
             raise AssertionError(f"infer_dir.sh's {mode} call did not run on the card")
     if any(lengths[("out_stream", w.name)] != lengths[("out_wav", w.name)] for w in wav_in):
         raise AssertionError(f"streaming and whole-file lengths differ: {lengths}")
-    infer_dir_s = time.perf_counter() - t1
     print("recipe " + json.dumps({
-        "run_libritts_s": round(recipe_s, 2), "stages": sorted(set(stages)),
+        "stages": sorted(set(stages)),
         "manifests": manifests, "fm_steps": len(fm_steps),
         "gan_sides": "".join(x["side"] for x in gan_steps), "mrstft": pesq["mrstft"],
         "last_weights_export": "equals epoch-1's generator; the windowed export differs",
         "periodicity_rmse": pitch["periodicity_rmse"], "vuv_f1": pitch["vuv_f1"],
-        "launches": launches, "infer_dir_s": round(infer_dir_s, 2),
-        "phase_s": round(time.perf_counter() - t0, 2), "card": card}))
-    return launches
+        "launches": launches, "card": card}))
 
 
 def main() -> int:
@@ -3395,7 +2925,7 @@ def main() -> int:
     # on; get_model would set the same
     disable_tf32()
     # the kernels' launch counters count while the program's tracing is on;
-    # the timings turn it off (`untraced`)
+    # the kernel timings turn it off (`untraced`)
     tracing.enable()
     clock = PhaseClock()
     card = card_line()
@@ -3411,9 +2941,9 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     clock.done("2_build")
 
-    print(f"bound_ms = max(spectrogram and waveform bytes / {HBM_BYTES_PER_S:.3g} B/s, FFT-form FLOP / "
-          f"{FP32_FLOP_PER_S:.3g} FLOP/s): H100 SXM data sheet, HBM3 and FP32 on CUDA cores; "
-          "matmul_ops_ms is the matmul form's FLOP at the same rate, not a bound")
+    print(f"bound_ms: portbench/yardstick.py's, the larger of the bytes at "
+          f"{yardstick.HBM_BYTES_PER_S:.3g} B/s and the FFT-form FLOP at "
+          f"{yardstick.FP32_FLOP_PER_S:.3g} FLOP/s")
     # what the timing harness reads for a kernel that does nearly nothing
     one = torch.zeros(1, device="cuda")
     floor_ms = statistics.median(device_ms(lambda: one.add_(1)))
@@ -3451,7 +2981,7 @@ def main() -> int:
     model = get_model("mel_24k_base", device="cuda", seed=0)
     # the request's mel arrives in host memory, as a server receives it
     mel = torch.from_numpy(np.random.RandomState(0).randn(16, 100, 94).astype(np.float32))
-    launches, wall_ms, launches44 = main_path(card, model, mel)
+    serving = main_path(model, mel)
     clock.done("5_main_path")
     card_vs_cpu()
     clock.done("6_card_vs_cpu")
@@ -3461,81 +2991,57 @@ def main() -> int:
         raise AssertionError(f"reconstruct gave {tuple(wav.shape)}")
     print(f"reconstruct: (4, 24000) waveform -> {tuple(wav.shape)}, finite")
     clock.done("7_reconstruct")
-    profile_one_call(card, model, mel, wall_ms, "f32")
-    clock.done("8_serving_profile")
-    bf16_launches = bf16_serving(card, model, mel)
+    bf16_serving(card, model, mel)
     del model
     clock.done("11_bf16_serving")
-    card44_launches = card_vs_cpu_44k(card)
+    card_vs_cpu_44k()
     clock.done("12_card_vs_cpu_44k")
-    graph_launches = graph_replay(card)
+    graph_replay(card)
     clock.done("22_graph_replay")
     chain_kernels = convnext_chain_phase(card)
     clock.done("23_convnext_chain")
     grads_card_vs_cpu(card, float64="report")
     clock.done("9_grads_card_vs_cpu_and_float64")
     discriminators_card_vs_cpu(card)
-    gan_grad_launches = gan_grads_card_vs_cpu(card)
+    gan_grads_card_vs_cpu(card)
     clock.done("15abc_discriminators_and_gan_objectives_card_vs_cpu")
     root = Path(__file__).resolve().parent / "build" / "smoke_train"
-    train_launches, exp, averaged, train_step_ms = trainer(card, root)
+    train_launches, exp, averaged = trainer(card, root)
     clock.done("10_trainer")
-    bf16_train_launches = bf16_trainer(card, root)
+    bf16_trainer(card, root)
     clock.done("13_bf16_trainer")
-    cli_launches = clis(card, root, exp, averaged)
+    clis(card, root, exp, averaged)
     for path in [*exp.glob("*.pt"), *(root / "exp_bf16").glob("*.pt")]:
         if path != averaged:
             path.unlink()  # several GB of FM checkpoints
     clock.done("14_clis")
-    gan = gan_finetune(card, root, averaged)
+    gan_launches, gan_exp = gan_finetune(card, root, averaged)
     clock.done("15d_gan_finetune")
-    remat_launches = gan_step_profiles(card, averaged, gan["d_ms"], gan["g_ms"])
-    clock.done("15ef_gan_step_profiles_and_remat")
-    gan_cli_launches = gan_clis(card, root, gan["exp"])
-    shutil.rmtree(gan["exp"], ignore_errors=True)
+    gan_remat(card, averaged)
+    clock.done("15f_gan_remat")
+    gan_clis(card, root, gan_exp)
+    shutil.rmtree(gan_exp, ignore_errors=True)
     clock.done("15g_gan_clis")
-    dp = data_parallel_steps(card)
+    data_parallel_steps(card)
     clock.done("16ab_data_parallel_steps")
-    dp_train = data_parallel_trainer(card, root)
+    data_parallel_trainer(card, root)
     clock.done("16c_data_parallel_trainer")
     resume_phase(card, root, averaged)
     clock.done("17_resume")
-    tokens = token_family(card, root, clock)
-    obs = observability(card, root, averaged, train_step_ms)
+    token_gan_launches = token_family(card, root, clock)
+    observability(card, root, averaged)
     shutil.rmtree(root, ignore_errors=True)  # several GB of checkpoints
     clock.done("19_observability")
-    recipe_launches = recipe(card, root / "recipe")
+    recipe(card, root / "recipe")
     shutil.rmtree(root, ignore_errors=True)
     clock.done("20_recipe")
-    dp_paths = {"fm_step_2_ranks_per_rank": 0, "gan_d_step_2_ranks_per_rank": 1,
-                "gan_g_step_2_ranks_per_rank": 2,
-                f"pretrain_2_ranks_{dp_train['steps']}_steps_per_rank": 3}
-    dp_launches = [dp["fm"], dp["d"], dp["g"], dp_train["launches"]]
-    # each token path's launches (forward, adjoint), as its run read them
-    token_paths = {
-        "token_serving_f32_1_2_4_steps": tokens["serving"]["serving"],
-        "token_reconstruct_1_step": tokens["serving"]["reconstruct"],
-        **{f"token_fm_step_card_vs_cpu_seed_{seed}": pair
-           for seed, pair in zip((5, 6), tokens["fm_step"])},
-        f"token_training_{TOKEN_STEPS}_steps": (tokens["train"]["forward"],
-                                                tokens["train"]["adjoint"]),
-        "token_finetune_4_steps_8_batches": (tokens["gan"]["forward"], tokens["gan"]["adjoint"]),
-        "token_finetune_d_steps": tokens["gan"]["d_steps"],
-        "token_finetune_g_steps": tokens["gan"]["g_steps"],
-        **{f"token_cli_{k}": v for k, v in tokens["cli"].items()}}
-    obs_paths = {
-        f"observability_pretrain_{OBS_STEPS}_steps": obs["pretrain"]["launches"],
-        "observability_pretrain_profiled_window_10_15": obs["pretrain"]["profiled_window"],
-        "observability_inf_check_poisoned_4_steps": obs["inf_check"],
-        "observability_diagnostics_pretrain_5_batches": obs["diagnostics"]["launches"],
-        f"observability_finetune_{OBS_STEPS}_batches": obs["finetune"]["launches"],
-        "observability_finetune_d_steps": obs["finetune"]["d_steps"],
-        "observability_finetune_g_steps": obs["finetune"]["g_steps"],
-        "observability_finetune_validation": obs["finetune"]["validation"],
-        "observability_finetune_profiled_window_10_15": obs["finetune"]["profiled_window"],
-        "observability_diagnostics_finetune_5_batches":
-            obs["finetune"]["diagnostics"]["launches"]}
 
+    # (forward, adjoint) launches on the paths of PERF.md's kernel table
+    paths = {"serving_f32_1_2_4_steps": serving,
+             f"training_f32_{TRAIN_STEPS}_steps": (train_launches["forward"],
+                                                   train_launches["adjoint"]),
+             f"gan_finetune_{GAN_STEPS}_steps_{GAN_BATCHES}_batches": gan_launches,
+             f"token_finetune_{GAN_STEPS}_steps_8_batches": token_gan_launches}
     step = shapes[:3]  # the three branches of one mel_24k_base Euler step
     train_step = adjoint_shapes[-3:]  # the three branches of one training step
     print(json.dumps({"kernels": [{
@@ -3543,35 +3049,12 @@ def main() -> int:
         "route": "cuda",
         "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:240",
-        "launches": launches,
-        "launches_by_path": {
-            "serving_f32_1_2_4_steps": launches, "serving_bf16_1_2_4_steps": bf16_launches,
-            "serving_44k_1_step": launches44, "card_vs_cpu_44k_1_step": card44_launches,
-            "graph_replayed_stream_44k_30s": graph_launches,
-            "training_f32_32_steps": train_launches["forward"],
-            "training_bf16_8_steps": bf16_train_launches["forward"],
-            **{f"cli_{k}": v for k, v in cli_launches.items()},
-            "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][0],
-            "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][0],
-            "gan_finetune_4_steps_32_batches": gan["launches"]["forward"],
-            "gan_finetune_d_steps": gan["launches"]["d_steps"][0],
-            "gan_finetune_g_steps": gan["launches"]["g_steps"][0],
-            "gan_finetune_validation": gan["launches"]["validation"][0],
-            "gan_g_step_plain": remat_launches["plain"][0],
-            "gan_g_step_remat_with_recompute": remat_launches["remat"][0],
-            "cli_infer_load_gan_4_steps": gan_cli_launches,
-            **{k: dp_launches[i][0] for k, i in dp_paths.items()},
-            **{k: v[0] for k, v in token_paths.items()},
-            **{k: v[0] for k, v in obs_paths.items()},
-            **{k: v[0] for k, v in recipe_launches.items()}},
+        "launches_by_path": {k: v[0] for k, v in paths.items()},
         "max_abs_err": max(s["max_abs_err"] for s in shapes + reference_batches["istft"]),
         "max_rel_err": max(s["max_rel_err"] for s in shapes + reference_batches["istft"]),
         "ms": sum(s["ms"] for s in step),
         "plain_ms": sum(s["plain_ms"] for s in step),
         "bound_ms": sum(s["bound_ms"] for s in step),
-        "bound_by": ("operations" if sum(s["ops_ms"] for s in step)
-                     >= sum(s["bytes_ms"] for s in step) else "bytes"),
-        "matmul_ops_ms": sum(s["matmul_ops_ms"] for s in step),
         "library_ms": sum(s["library_ms"] for s in step),
         "floor_ms": floor_ms,
         "per": "one mel_24k_base Euler step at batch 16: the sum over its three branch shapes",
@@ -3581,28 +3064,12 @@ def main() -> int:
         "route": "cuda",
         "source": "flow2gan_tpu_torch/csrc/fused_istft.cu",
         "replaces": "flow2gan_tpu/ops/pallas_istft.py:222",
-        "launches": train_launches["adjoint"],
-        "launches_by_path": {"training_f32_32_steps": train_launches["adjoint"],
-                             "training_bf16_8_steps": bf16_train_launches["adjoint"],
-                             "gan_d_objective_card_vs_cpu_1_step": gan_grad_launches["d"][1],
-                             "gan_g_objective_card_vs_cpu_1_step": gan_grad_launches["g"][1],
-                             "gan_finetune_4_steps_32_batches": gan["launches"]["adjoint"],
-                             "gan_finetune_d_steps": gan["launches"]["d_steps"][1],
-                             "gan_finetune_g_steps": gan["launches"]["g_steps"][1],
-                             "gan_finetune_validation": gan["launches"]["validation"][1],
-                             "gan_g_step_plain": remat_launches["plain"][1],
-                             "gan_g_step_remat": remat_launches["remat"][1],
-                             **{k: dp_launches[i][1] for k, i in dp_paths.items()},
-                             **{k: v[1] for k, v in token_paths.items()},
-                             **{k: v[1] for k, v in obs_paths.items()},
-                             **{k: v[1] for k, v in recipe_launches.items()}},
+        "launches_by_path": {k: v[1] for k, v in paths.items()},
         "max_abs_err": max(s["max_abs_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "max_rel_err": max(s["max_rel_err"] for s in adjoint_shapes + reference_batches["adjoint"]),
         "ms": sum(s["ms"] for s in train_step),
         "plain_ms": sum(s["plain_ms"] for s in train_step),
         "bound_ms": sum(s["bound_ms"] for s in train_step),
-        "bound_by": ("operations" if sum(s["ops_ms"] for s in train_step)
-                     >= sum(s["bytes_ms"] for s in train_step) else "bytes"),
         "library_ms": sum(s["library_ms"] for s in train_step),
         "floor_ms": floor_ms,
         "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",

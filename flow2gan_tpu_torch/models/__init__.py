@@ -28,7 +28,7 @@ _MODEL_KEYS = (
 )
 
 
-def build_generator(config, istft_impl: str = "auto") -> BaseAudioGenerator:
+def build_generator(config) -> BaseAudioGenerator:
     """Construct the generator of a named config dict/AttributeDict.
 
     `conditioning: "tokens"` builds a `TokenAudioGenerator` (ids of the
@@ -45,10 +45,8 @@ def build_generator(config, istft_impl: str = "auto") -> BaseAudioGenerator:
     conditioning = config.get("conditioning", "mel")
     if conditioning == "tokens":
         return TokenAudioGenerator(vocab_size=config["vocab_size"], cond_dim=config["cond_embed_dim"],
-                                   token_hop_length=config["mel_hop_length"], istft_impl=istft_impl,
-                                   **common)
+                                   token_hop_length=config["mel_hop_length"], **common)
     if conditioning != "mel":
         raise ValueError(f"unknown conditioning: {conditioning!r}")
     return MelAudioGenerator(n_mels=config["n_mels"], mel_hop_length=config["mel_hop_length"],
-                             max_add_noise_scale=config["max_add_noise_scale"],
-                             istft_impl=istft_impl, **common)
+                             max_add_noise_scale=config["max_add_noise_scale"], **common)

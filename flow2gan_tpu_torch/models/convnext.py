@@ -33,11 +33,6 @@ from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.stft import real_to_spec, spec_to_real, stft, stft_lens
 from flow2gan_tpu_torch.utils import make_valid_mask
 
-ISTFT_IMPLS = {
-    "auto": fused.fused_istft,  # the kernels for CUDA tensors, plain for CPU ones
-    "kernel": fused.istft_kernel,  # raises on a CPU tensor
-}
-
 
 def sinusoidal_pos_emb(t: torch.Tensor, dim: int, scale: float = 1000.0) -> torch.Tensor:
     """Sinusoidal embedding of flow time t: (B,) -> (B, dim), sin then cos."""
@@ -326,10 +321,9 @@ class ConvNeXtDecoder(nn.Module):
 class AudioConvNeXt(nn.Module):
     """One resolution branch: wav -> STFT -> ConvNeXt decode -> iSTFT -> wav.
 
-    Input audio (B, L), cond (B, T_c, C_c). `istft_impl` picks the iSTFT:
-    "auto" is the fused kernel (and its adjoint kernel in backward) for CUDA
-    tensors and the plain versions for CPU ones, "kernel" the kernels only (a
-    CPU tensor raises). No value sends a CUDA tensor through the plain
+    Input audio (B, L), cond (B, T_c, C_c). The iSTFT is `fused.fused_istft`:
+    the fused kernel (and its adjoint kernel in backward) for CUDA tensors,
+    the plain versions for CPU ones; a CUDA tensor never takes the plain
     version. `gates` (the limiters' training gates, `models/norms.py`) is
     None in the eval form. `dtype` is the decoder's compute dtype; the STFT
     and the iSTFT stay float32.
@@ -347,18 +341,14 @@ class AudioConvNeXt(nn.Module):
         conv_kernel_size: int = 7,
         num_layers: int = 8,
         use_residual_scale: bool = True,
-        istft_impl: str = "auto",
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if cond_hop_length % hop_length:
             raise ValueError("cond_hop_length must be an integer multiple of hop_length")
-        if istft_impl not in ISTFT_IMPLS:
-            raise ValueError(f"istft_impl must be one of {sorted(ISTFT_IMPLS)}, got {istft_impl!r}")
         self.n_fft = n_fft
         self.hop_length = hop_length
         self.cond_upsample_factor = cond_hop_length // hop_length
-        self.istft_impl = istft_impl
         self.decoder = ConvNeXtDecoder(
             in_channels=n_fft + 2,
             out_channels=n_fft + 2,
@@ -402,6 +392,4 @@ class AudioConvNeXt(nn.Module):
         x = self.decoder(x, cond=cond, t=t, mask=mask, gates=gates)
         if mask is not None:
             x = x * mask
-        return ISTFT_IMPLS[self.istft_impl](
-            real_to_spec(x), self.n_fft, self.hop_length, length=length
-        )
+        return fused.fused_istft(real_to_spec(x), self.n_fft, self.hop_length, length=length)

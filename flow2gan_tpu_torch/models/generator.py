@@ -141,7 +141,6 @@ class BaseAudioGenerator(nn.Module):
         loss_scale_max: float = 1e2,
         branch_dropout: float = 0.05,
         compute_dtype: Optional[str] = None,
-        istft_impl: str = "auto",
     ):
         super().__init__()
         # the ConvNeXt stacks' compute dtype ("bfloat16"; None is float32);
@@ -190,7 +189,6 @@ class BaseAudioGenerator(nn.Module):
                 conv_kernel_size=conv_kernel_sizes[i],
                 num_layers=num_layers[i],
                 use_residual_scale=use_residual_scale,
-                istft_impl=istft_impl,
                 dtype=dtype,
             )
             for i in range(n)

@@ -44,13 +44,9 @@ def _nvcc() -> str:
 
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> Build:
-    """Compile `csrc/<name>.cu` unless a build of this exact source exists."""
-    return build_file(CSRC / f"{name}.cu")
-
-
-def build_file(src: Path) -> Build:
-    """Compile the CUDA source `src` into BUILD_DIR unless a build of this
-    exact source exists (an older version of a kernel, for an A/B)."""
+    """Compile `csrc/<name>.cu` into BUILD_DIR unless a build of this exact
+    source exists."""
+    src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
     if out.exists():

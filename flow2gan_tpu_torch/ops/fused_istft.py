@@ -6,8 +6,7 @@ wrappers, the port of the Pallas TPU kernel in
 launches the fused kernel and its backward the adjoint kernel; for a CPU
 tensor they are the plain versions, `istft_plain` (`ops.stft.istft`) and
 `istft_adjoint_plain`. The iSTFT is linear, so the backward needs only the
-shapes. `fused_istft` is what the model calls; `istft_kernel` is the same for
-CUDA tensors only and raises on a CPU one. Each launch adds 1 to the tracing
+shapes. `fused_istft` is what the model calls. Each launch adds 1 to the tracing
 counter `istft.launches` or `istft.adjoint_launches` (`tracing.count`, while
 its switch is on), so a run can show that its path went through them.
 
@@ -285,7 +284,7 @@ def _check_cuda(x: torch.Tensor, name: str, dtype: torch.dtype, n_fft: int, hop_
 def _launch_istft(spec: torch.Tensor, n_fft: int, hop_length: int, length: int) -> torch.Tensor:
     """Launch the fused iSTFT kernel: complex64 (B, T_f, n_fft//2+1) on the
     card -> float32 (B, length), the same function as `istft_plain`."""
-    _check_cuda(spec, "istft_kernel", torch.complex64, n_fft, hop_length)
+    _check_cuda(spec, "fused_istft", torch.complex64, n_fft, hop_length)
     if spec.ndim != 3 or spec.shape[-1] != n_fft // 2 + 1:
         raise ValueError(f"expected (B, T_f, {n_fft // 2 + 1}), got {tuple(spec.shape)}")
     batch, t_f, n_freq = spec.shape
@@ -356,16 +355,6 @@ class FusedISTFT(torch.autograd.Function):
             return istft_adjoint_plain(grad, t_f, n_fft, hop_length), None, None, None
         # the incoming gradient may be a strided view (a transpose, a slice)
         return istft_adjoint_kernel(grad.contiguous(), t_f, n_fft, hop_length), None, None, None
-
-
-def istft_kernel(
-    spec: torch.Tensor, n_fft: int, hop_length: int, length: Optional[int] = None
-) -> torch.Tensor:
-    """The fused iSTFT for a CUDA tensor only: the forward and the adjoint
-    kernels (`FusedISTFT`); raises on a CPU tensor."""
-    if spec.device.type != "cuda":
-        raise ValueError(f"istft_kernel needs a CUDA tensor, got one on {spec.device}")
-    return FusedISTFT.apply(spec, n_fft, hop_length, length)
 
 
 def fused_istft(

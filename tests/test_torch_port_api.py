@@ -70,6 +70,25 @@ def test_recipes_call_only_the_port():
         assert "flow2gan_tpu_torch.bin." in text, path.name
 
 
+def test_card_check_bounds_are_the_yardsticks():
+    """The card check's kernel bounds are `portbench/yardstick.py`'s at every
+    shape it times the iSTFT and its adjoint, and it keeps no peak, bound or
+    kernel family of its own."""
+    import chip_smoke
+    from portbench import yardstick
+
+    shapes = chip_smoke.MAIN_SHAPES + chip_smoke.TRAIN_SHAPES + chip_smoke.REFERENCE_BATCH_SHAPES
+    for n_fft, hop, batch, t_f, length in shapes:
+        assert chip_smoke.bound_ms("istft", n_fft, hop, batch, t_f, length) == (
+            1e3 * yardstick.istft_bound_s(n_fft, batch, t_f, length))
+        assert chip_smoke.bound_ms("adjoint", n_fft, hop, batch, t_f, length) == (
+            1e3 * yardstick.adjoint_bound_s(n_fft, batch, t_f, length))
+    assert chip_smoke.yardstick is yardstick
+    for name in ("HBM_BYTES_PER_S", "FP32_FLOP_PER_S", "istft_bound_ms", "adjoint_bound_ms",
+                 "_GEMM_NAMES", "_family", "NCCL_FAMILY"):
+        assert not hasattr(chip_smoke, name), name
+
+
 def test_get_model_needs_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

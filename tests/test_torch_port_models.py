@@ -133,17 +133,6 @@ def test_audio_convnext_branch_matches_jax(n_fft, hop, with_lens):
     assert _rel_err(ours.detach().numpy(), ref) < TOL
 
 
-def test_kernel_istft_impl_raises_on_cpu():
-    pm = convnext.AudioConvNeXt(n_fft=128, hop_length=64, channels=16, cond_channels=8,
-                                time_embed_channels=8, num_layers=1, istft_impl="kernel")
-    with pytest.raises(ValueError, match="CUDA"):
-        pm(torch.zeros(1, 1024), torch.zeros(1, 4, 8), torch.zeros(1))
-    # no value of the switch sends a tensor through the plain version by name
-    for impl in ("fast", "plain"):
-        with pytest.raises(ValueError, match="istft_impl"):
-            convnext.AudioConvNeXt(istft_impl=impl)
-
-
 _CONFIGS = {
     "small": SMALL_CFG,
     "tiny": get_generator_config("mel_24k_tiny"),

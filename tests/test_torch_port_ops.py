@@ -294,7 +294,7 @@ def test_fused_istft_uses_plain_version_on_cpu_only():
         pstft.istft(spec, 256, 128, length=4000).numpy(),
     )
     with pytest.raises(ValueError, match="CUDA"):
-        fused.istft_kernel(spec, 256, 128)
+        fused._launch_istft(spec, 256, 128, 4000)
     assert fused.supported(128, 64) and not fused.supported(512, 200)
     assert fused.supported(64, 32) and fused.supported(1024, 512) and fused.supported(1024, 1)
     assert not fused.supported(2048, 512) and not fused.supported(32, 16)

@@ -335,7 +335,7 @@ def test_fused_istft_backward_saves_shapes_and_takes_strided_grads():
     ref = pstft.istft_adjoint(w.t().contiguous(), 9, 256, 128)
     torch.testing.assert_close(spec.grad, ref, rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA"):
-        fused.istft_kernel(spec.detach(), 256, 128)
+        fused.istft_adjoint_kernel(w.t().contiguous(), 9, 256, 128)
 
 
 # ------------------------------------------------------------ the limiter
