@@ -6,7 +6,7 @@ CUDA toolkit:
     python3 chip_smoke.py
 
 It checks; `portbench/` measures. The only times it takes are each
-hand-written kernel's alone (phases 3, 4 and 23: its ms, its plain
+hand-written kernel's alone (phases 3, 4, 23 and 24: its ms, its plain
 version's, the library's where one exists, and the bound from
 `portbench/yardstick.py`), since no benchmark cell times a kernel alone.
 
@@ -170,8 +170,8 @@ its wall time (phase 18 one such line for each of its parts):
    and `bash flow2gan_tpu_torch/recipes/infer_dir.sh` in its three modes
    (the test WAVs, that file's mel, the WAVs in streaming chunks) with the
    exported generator, each output checked;
-21. the `kernels` JSON line (the fused iSTFT, its adjoint and phase 23's
-   three ConvNeXt chain kernels: each one's times at the shapes of one
+21. the `kernels` JSON line (the fused iSTFT, its adjoint, phase 23's
+   three ConvNeXt chain kernels and phase 24's four train-form kernels: each one's times at the shapes of one
    serving or training step and the shapes behind them, and its launches
    on the paths PERF.md's kernel table reads), then the card line and the
    result line;
@@ -201,7 +201,23 @@ its wall time (phase 18 one such line for each of its parts):
    fresh model's first call 100 `convnext.fused_blocks` and no
    `convnext.eager_blocks` (mel_24k_base, 4 steps), 28 on the 44.1 kHz
    stream chunk, and 28 eager in bf16; each call against the eager chain;
-   no depthwise conv kernel in a bulk call.
+   no depthwise conv kernel in a bulk call;
+24. (run after phase 23) the ConvNeXt blocks' train form
+   (`flow2gan_tpu_torch/csrc/convnext_chain_train.cu` through
+   `ops/convnext_chain_train.py TrainChain`): its build and ptxas' report;
+   its four kernels and the partials' float64 sums against their plain
+   versions in float64 at the blocks
+   of a training step at the FM cell's 256 rows (timed: each kernel's ms,
+   its plain version's and its byte bound) and the GAN cell's 64 (1.5 s
+   crops: the three branches and the cond encoder), and at edges (one
+   frame, fewer frames than taps, widths 132, 1024 and 48, a longer cond);
+   one 768-channel block's train form (gates on, limiters past their
+   limits, a ragged mask) through the kernels and through the eager chain,
+   each gradient against the block in float64, and the kernels one forward
+   and backward runs (no depthwise conv); the counters over one
+   `fm_train_step` (28 blocks through the Function, none eager) and one GAN
+   D step (100 through the eval chain) and G step at 4 Euler steps with
+   remat (100 through the Function and 96 recomputed, none eager).
 """
 
 from __future__ import annotations
@@ -256,6 +272,7 @@ from flow2gan_tpu_torch.models import convnext
 from flow2gan_tpu_torch.models.convnext import ConvNeXtBlock
 from flow2gan_tpu_torch.models.generator import branch_dropout_weight
 from flow2gan_tpu_torch.ops import convnext_chain as chain
+from flow2gan_tpu_torch.ops import convnext_chain_train as train_chain
 from flow2gan_tpu_torch.ops import cuda_build
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.mel import LogMelSpectrogram
@@ -375,6 +392,37 @@ CHAIN_EDGES = [
     ("tiny_width_48", 2, 257, 48, 4, True, False),
     ("tiny_width_48_unconditioned", 2, 31, 48, 1, False, True),
     ("width_1024", 2, 97, 1024, 1, True, False),
+]
+# the train-form kernels against their plain versions in float64 on the
+# card: each output's largest error over its largest value (the parameter
+# sums add up to 144k rows in float32 a thread and a block, then float64),
+# within this or within TRAIN_BLOCK_RATIO times the float32 plain version's
+# own error, where a sum that nearly cancels (the log-scale's) puts that
+# higher
+TRAIN_CHAIN_TOL = 1e-5
+# a block's train form through the kernels against float64 (the same block
+# widened, eager autograd on the card), each gradient tensor's error over its
+# norm: within this, or within TRAIN_BLOCK_RATIO times the eager float32
+# chain's own error where a gradient that nearly cancels puts that higher
+TRAIN_BLOCK_TOL = 2e-5
+TRAIN_BLOCK_RATIO = 4.0
+# (label, batch, frames, channels, f, conditioned, ragged): the ConvNeXt
+# blocks of a training step at the cells' per-card batches, 1.5 s crops:
+# FM at 256 rows (timed), the GAN at 64; the three branches and the cond
+# encoder
+TRAIN_CHAIN_SHAPES = [
+    *[(f"{name}_branch_{i}", batch, frames, ch, f, True, batch == 64)
+      for name, batch in (("fm", 256), ("gan", 64))
+      for i, (frames, ch, f) in enumerate(((141, 768, 1), (282, 512, 2), (563, 384, 4)))],
+    ("fm_cond_encoder", 256, 141, 512, 1, False, False),
+    ("gan_cond_encoder", 64, 141, 512, 1, False, True),
+]
+TRAIN_CHAIN_EDGES = [
+    ("one_frame", 3, 1, 384, 4, True, True),
+    ("frames_below_taps", 2, 5, 768, 1, True, False),
+    ("odd_width_132", 3, 97, 132, 2, True, True),
+    ("width_1024", 2, 83, 1024, 1, True, False),
+    ("tiny_width_48_unconditioned", 5, 31, 48, 1, False, True),
 ]
 TRAIN_ARGS = ["--model-name", "mel_24k_base", "--batch-size", "16", "--duration", "1.5",
               "--num-epochs", "2", "--num-workers", "4", "--seed", "0", "--save-every-n", "16",
@@ -1032,13 +1080,14 @@ def chain_counts() -> dict:
 
 @contextlib.contextmanager
 def eager_chain():
-    """Every ConvNeXt block takes the eager chain, as before the kernels."""
-    taken = convnext.takes_chain
-    convnext.takes_chain = lambda *args: False
+    """Every ConvNeXt block takes the eager chain, as before the kernels, in
+    eval and train form."""
+    taken, train_taken = convnext.takes_chain, convnext.takes_train_chain
+    convnext.takes_chain = convnext.takes_train_chain = lambda *args: False
     try:
         yield
     finally:
-        convnext.takes_chain = taken
+        convnext.takes_chain, convnext.takes_train_chain = taken, train_taken
 
 
 def chain_bytes(batch, frames, channels, f, conditioned, masked=False) -> dict:
@@ -1123,7 +1172,7 @@ def check_chain_shape(label, batch, frames, channels, f, conditioned, ragged=Fal
 def chain_block(card: str) -> dict:
     """One conditioned mel_24k_base branch-0 block (768 channels) at bulk's
     batch 16 x 873 frames: its eval form through the kernels against the
-    eager chain (grad enabled) on the card; the kernels three eval-form
+    eager chain (`eager_chain`) on the card; the kernels three eval-form
     calls run (the three chain kernels, once a call, and the GEMMs: no bias
     pass beside the GEMMs)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1142,12 +1191,13 @@ def chain_block(card: str) -> dict:
     tracing.drain()
     with torch.no_grad():
         fused_out = block(x, cond, time_embed)
-    eager_out = block(x, cond, time_embed).detach()  # grad enabled: the eager chain
+        with eager_chain():
+            eager_out = block(x, cond, time_embed)
     torch.cuda.synchronize()
     counts = chain_counts()
     if counts != {"fused_blocks": 1, "eager_blocks": 1, "norm_film_launches": 1,
                   "prelu_launches": 1, "residual_launches": 1}:
-        raise AssertionError(f"a no-grad and a grad-enabled block call counted {counts}")
+        raise AssertionError(f"a block call through the chain and one eager counted {counts}")
     err = (fused_out - eager_out).abs().max().item() / eager_out.abs().max().item()
     # three calls: the profiler has missed the first kernels of a window
     calls = 3
@@ -1255,6 +1305,316 @@ def convnext_chain_phase(card: str) -> list:
             "plain_ms": sum(s[f"{key}_plain_ms"] for s in step),
             "bound_ms": sum(s[f"{key}_bound_ms"] for s in step), "bound_by": "bytes",
             "per": "one block of each branch of mel_24k_base at batch 16, 872 mel frames",
+            "shapes": [{k: v for k, v in s.items() if k.startswith((key, "label"))}
+                       for s in shapes],
+        })
+    return entries
+
+
+TRAIN_COUNTERS = ("train_fused_blocks", "train_eager_blocks", "eager_blocks", "fused_blocks",
+                  "prelu_fwd_launches", "prelu_bwd_launches", "norm_film_bwd_launches",
+                  "dwconv_bwd_launches")
+
+
+def train_counts() -> dict:
+    """The train-form chain's counters since the last `tracing.drain()`."""
+    return {k: tracing.counter(f"convnext.{k}") for k in TRAIN_COUNTERS}
+
+
+def train_chain_bytes(batch, frames, channels, f, conditioned, ragged, chunks, segs) -> dict:
+    """The least bytes each train-form kernel moves: every input read once
+    and every output written once, partial sums included; the mask only
+    where there is one."""
+    n, hidden = batch * frames * channels, 3 * channels
+    rows = -(-frames // f)
+    cond = 2 * batch * rows * channels + batch * channels if conditioned else 0  # c in, dc out
+    mask = batch * frames if ragged else 0
+    parts = {"prelu": chunks * 2 * hidden, "norm": batch * segs * (channels + 4),
+             "te": segs * batch * channels if conditioned else 0,
+             "conv": -(-batch * segs // 8) * channels * 10}
+    return {"prelu_fwd": 4 * (6 * n + hidden), "prelu_bwd": 4 * (12 * n + hidden + parts["prelu"]),
+            "norm_film_bwd": 4 * (3 * n + mask + cond + 10 * channels
+                                  + parts["norm"] + parts["te"]),
+            "dwconv_bwd": 4 * (4 * n + mask + 9 * channels + parts["conv"])}
+
+
+def _max_rel(ours, ref) -> float:
+    return ((ours.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
+
+
+def check_train_chain_shape(label, batch, frames, channels, f, conditioned, ragged=False,
+                            extra_rows=0, timed=True) -> dict:
+    """The four train-form kernels on the card at one shape against their
+    plain versions in float64 (`convnext_prelu_fwd` and `convnext_prelu_bwd`'s
+    dh1 and p against the float32 plain versions bit for bit), each output
+    within TRAIN_CHAIN_TOL of the largest float64 value; the float32 plain
+    versions' own errors beside them. With `timed`, each kernel's ms, its
+    plain version's and the byte bound, and the partials' sums' ms."""
+    gen = torch.Generator(device="cuda").manual_seed(batch * 7919 + frames * 31 + channels + 1)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    hidden, sm = 3 * channels, torch.cuda.get_device_properties(0).multi_processor_count
+    mask = None
+    if ragged:
+        lens = torch.randint(1, frames + 1, (batch,), generator=gen, device="cuda")
+        lens[0] = frames
+        mask = make_valid_mask(lens, frames)[..., None]
+    c = te = None
+    if conditioned:
+        c, te = rnd(batch, -(-frames // f) + extra_rows, channels), rnd(batch, channels, scale=0.3)
+    x, dy, g = rnd(batch, frames, channels), rnd(batch, frames, channels), rnd(batch, frames, channels)
+    w, db, nb = rnd(channels, 1, 7, scale=0.3), rnd(channels, scale=0.1), rnd(channels, scale=0.1)
+    ls = torch.tensor(0.4, device="cuda")
+    alpha, scale = 0.25 + rnd(hidden, scale=0.05), 0.5 + rnd(channels, scale=0.1).abs()
+    h1, dp = rnd(batch * frames, hidden), rnd(batch * frames, hidden)
+    chunks = train_chain.prelu_bwd_plan(batch * frames, hidden, sm)[0]
+    segs, seg_rows = train_chain.segment_plan(batch, frames, f, sm)
+
+    def backward():
+        sums = train_chain._Sums(batch, channels, hidden, 7, conditioned, chunks, segs, x.device)
+        dh1 = dp.clone()
+        p = train_chain._launch_prelu_bwd(dh1, h1, alpha, sums)
+        dz, dc = train_chain._launch_norm_film_bwd(x, mask, w, db, nb, ls, c, te, f, dy, sums,
+                                                   segs, seg_rows)
+        dx = train_chain._launch_dwconv_bwd(dz, x, mask, w, g, scale, sums, segs, seg_rows)
+        return dh1, p, dz, dc, dx, sums, sums.finish()
+
+    p_fwd = train_chain.prelu_out(h1, alpha)
+    dh1, p, dz, dc, dx, _, out = backward()
+    torch.cuda.synchronize()
+    plain_dh1, plain_p = train_chain.prelu_bwd_plain(dp, h1, alpha)[:2]
+    prelu_bitwise = (torch.equal(p_fwd, chain.prelu_plain(h1, alpha)) and torch.equal(p, plain_p)
+                     and torch.equal(dh1, plain_dh1))
+    del plain_dh1, plain_p
+    d64 = lambda t: None if t is None else t.double()  # noqa: E731
+    ours = {"dalpha": out["prelu"][:hidden], "db1": out["prelu"][hidden:]}
+    ref = dict(zip(("dalpha", "db1"), train_chain.prelu_bwd_plain(d64(dp), d64(h1),
+                                                                     d64(alpha))[2:]))
+    args64 = [d64(t) for t in (x, mask, w, db, nb, ls, c, te)]
+    ref.update(zip(("dz", "dc", "dnorm_bias", "dlog_scale", "dte"),
+                   train_chain.norm_film_bwd_plain(*args64, f, d64(dy))))
+    ours.update(dz=dz, dc=dc, dnorm_bias=out["norm"][:channels], dlog_scale=out["norm"][channels],
+                dte=out["te"].view(batch, channels) if conditioned else None)
+    ref.update(zip(("dx", "ddw_weight", "ddw_bias", "dscale", "db2"), train_chain.dwconv_bwd_plain(
+        d64(dz), d64(x), d64(mask), d64(w), d64(g), d64(scale))))
+    conv = out["conv"]
+    ours.update(dx=dx, ddw_weight=conv[:7 * channels].view(channels, 1, 7),
+                ddw_bias=conv[7 * channels:8 * channels], dscale=conv[8 * channels:9 * channels],
+                db2=conv[9 * channels:])
+    errs = {k: _max_rel(v, ref[k]) for k, v in ours.items() if v is not None}
+    # the float32 plain versions against float64, for scale
+    plain32 = dict(zip(("dz", "dc", "dnorm_bias", "dlog_scale", "dte"),
+                       train_chain.norm_film_bwd_plain(x, mask, w, db, nb, ls, c, te, f, dy)))
+    plain32.update(zip(("dx", "ddw_weight", "ddw_bias", "dscale", "db2"),
+                       train_chain.dwconv_bwd_plain(dz, x, mask, w, g, scale)))
+    plain_errs = {k: _max_rel(v, ref[k]) for k, v in plain32.items() if v is not None}
+    del ref, plain32, args64
+    row = dict(label=label, batch=batch, frames=frames, channels=channels, f=f,
+               conditioned=conditioned, ragged=ragged, prelu_chunks=chunks, segs=segs,
+               seg_rows=seg_rows, prelu_bitwise=prelu_bitwise,
+               max_rel_err=errs, plain_f32_max_rel_err=plain_errs)
+    if not prelu_bitwise or not all(
+            e <= max(TRAIN_CHAIN_TOL, TRAIN_BLOCK_RATIO * plain_errs.get(k, 0.0))
+            for k, e in errs.items()) or not all(
+            torch.isfinite(t).all() for t in (dz, dx, out["prelu"], out["norm"], conv)):
+        raise AssertionError(f"the train-form kernels disagree with their plain versions: {row}")
+    if timed:
+        sums = train_chain._Sums(batch, channels, hidden, 7, conditioned, chunks, segs, x.device)
+        dh1 = dp.clone()
+        fns = {
+            "prelu_fwd": lambda: train_chain.prelu_out(h1, alpha),
+            "prelu_fwd_plain": lambda: chain.prelu_plain(h1, alpha),
+            "prelu_bwd": lambda: train_chain._launch_prelu_bwd(dh1, h1, alpha, sums),
+            "prelu_bwd_plain": lambda: train_chain.prelu_bwd_plain(dp, h1, alpha),
+            "norm_film_bwd": lambda: train_chain._launch_norm_film_bwd(
+                x, mask, w, db, nb, ls, c, te, f, dy, sums, segs, seg_rows),
+            "norm_film_bwd_plain": lambda: train_chain.norm_film_bwd_plain(
+                x, mask, w, db, nb, ls, c, te, f, dy),
+            "dwconv_bwd": lambda: train_chain._launch_dwconv_bwd(dz, x, mask, w, g, scale, sums,
+                                                                 segs, seg_rows),
+            "dwconv_bwd_plain": lambda: train_chain.dwconv_bwd_plain(dz, x, mask, w, g, scale),
+            "partial_sums": sums.finish,  # torch's reductions, no kernel of this file
+        }
+        times = {key: [] for key in fns}
+        for key in [*fns, *reversed(fns)]:
+            times[key] += device_ms(fns[key], samples=10)
+        row.update({f"{key}_ms": statistics.median(v) for key, v in times.items()})
+        for key, nbytes in train_chain_bytes(batch, frames, channels, f, conditioned, ragged,
+                                             chunks, segs).items():
+            bound = nbytes / yardstick.HBM_BYTES_PER_S * 1e3
+            row.update({f"{key}_bound_ms": bound, f"{key}_bound_share": bound / row[f"{key}_ms"]})
+    return row
+
+
+def _block_grads(block, x, cond, time_embed, mask, gates, grad) -> tuple:
+    block.zero_grad(set_to_none=True)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, cond, time_embed)]
+    out = block(*leaves, mask, gates)
+    (out * grad).sum().backward()
+    grads = {"x": leaves[0].grad, "cond": leaves[1].grad, "time_embed": leaves[2].grad}
+    grads.update({k: p.grad for k, p in block.named_parameters()})
+    return out.detach(), {k: v.detach().double() for k, v in grads.items()}
+
+
+def train_chain_block(card: str) -> dict:
+    """One conditioned mel_24k_base branch-0 block (768 channels) at the GAN
+    cell's 64 x 141 frames, a ragged mask, gates half on and its log-scale
+    and residual scales past their limits: its train form through the
+    Function against the eager chain's autograd on the card, each against
+    the same block in float64 (eager, on the card); the counters of each
+    path; the kernels one forward and backward runs (no depthwise conv)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    block = ConvNeXtBlock(768, 2304, 7, conditioned=True, cond_channels=512,
+                          time_embed_channels=512).cuda()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.05)
+        block.norm.log_scale.fill_(1.6)
+        block.residual_scale.scale.uniform_(0.3, 1.2, generator=gen)
+    block.norm.gate_index, block.residual_scale.gate_index = 0, 1
+    batch, frames = 64, 141
+    x = torch.randn(batch, frames, 768, generator=gen, device="cuda")
+    cond = torch.randn(batch, frames, 512, generator=gen, device="cuda")
+    time_embed = torch.randn(batch, 512, generator=gen, device="cuda")
+    lens = torch.randint(1, frames + 1, (batch,), generator=gen, device="cuda")
+    mask = make_valid_mask(lens, frames)[..., None]
+    grad = torch.randn(batch, frames, 768, generator=gen, device="cuda")
+    gates = torch.tensor([1.0, 1.0], device="cuda")
+    tracing.drain()
+    fused = _block_grads(block, x, cond, time_embed, mask, gates, grad)
+    torch.cuda.synchronize()
+    counts = train_counts()
+    expected = {"train_fused_blocks": 1, "prelu_fwd_launches": 1, "prelu_bwd_launches": 1,
+                "norm_film_bwd_launches": 1, "dwconv_bwd_launches": 1}
+    if counts != {k: expected.get(k, 0) for k in TRAIN_COUNTERS}:
+        raise AssertionError(f"a train-form block counted {counts}")
+    taken = convnext.takes_train_chain
+    convnext.takes_train_chain = lambda *args: False
+    try:
+        eager = _block_grads(block, x, cond, time_embed, mask, gates, grad)
+    finally:
+        convnext.takes_train_chain = taken
+    if train_counts()["train_eager_blocks"] != 1:
+        raise AssertionError(f"the eager train form counted {train_counts()}")
+    exact = _block_grads(copy.deepcopy(block).double(), x.double(), cond.double(),
+                         time_embed.double(), mask.double(), gates.double(), grad.double())
+
+    def err(a, b):
+        return ((a.double() - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+    report = {"out_fused": err(fused[0], exact[0]), "out_eager": err(eager[0], exact[0])}
+    worst, failed = {}, []
+    for name, ref in exact[1].items():
+        e_fused, e_eager = err(fused[1][name], ref), err(eager[1][name], ref)
+        worst[name] = (e_fused, e_eager)
+        if not e_fused <= max(TRAIN_BLOCK_TOL, TRAIN_BLOCK_RATIO * e_eager):
+            failed.append(name)
+    report["grads_fused_vs_eager_against_float64"] = worst
+    calls = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            _block_grads(block, x, cond, time_embed, mask, gates, grad)
+        torch.cuda.synchronize()
+    kernels = [(name, count) for _, name, count in device_kernels(prof)]
+    families = collections.Counter()
+    for name, count in kernels:
+        families[yardstick.family(name)] += count
+    report["kernels_by_family_two_calls"] = dict(families)
+    report["other_kernels_two_calls"] = [(n[:80], c) for n, c in kernels
+                                         if yardstick.family(n) != "gemm"]
+    print("convnext train chain block " + json.dumps({**report, "card": card}))
+    if not report["out_fused"] <= TRAIN_BLOCK_TOL or failed:
+        raise AssertionError(f"a block's train form is off float64 beyond the eager chain's own "
+                             f"error: {failed} {report}")
+    if families["conv_depthwise"]:
+        raise AssertionError(f"a depthwise conv kernel ran in the fused train form: {families}")
+    return report
+
+
+def train_chain_steps(card: str) -> dict:
+    """The counters over one `fm_train_step` of mel_24k_base at 16 x 1.5 s
+    (28 blocks through the Function, none eager) and one GAN D and G step
+    at 4 Euler steps with `remat_rollout` (D: 100 eval-form blocks through
+    the chain; G: 100 through the Function and 96 recomputed, none eager)."""
+    dev = torch.device("cuda")
+    batch = {k: v.to(dev) for k, v in dist_batch(DIST_BATCH, DIST_LENS).items()}
+    cfg = get_generator_config("mel_24k_base")
+    model = init_weights(build_generator(cfg), torch.Generator().manual_seed(0)).to(dev)
+    mel = LogMelSpectrogram(sampling_rate=24000, n_fft=1024, hop_length=256, n_mels=100).to(dev)
+    opt = ScaledAdam(model.named_parameters(), clipping_scale=2.0)
+    tracing.drain()
+    m = fm_train_step(model, opt, mel, batch, 1e-3, step_generator(0, 0, dev))
+    torch.cuda.synchronize()
+    rows = {"fm_step": {**train_counts(), "loss": float(m["loss"])}}
+    del model, opt, m
+    gen, disc, mel, recon = gan_models("cuda")
+    opt_g = ScaledAdam(gen.named_parameters(), clipping_scale=2.0)
+    opt_d = ScaledAdam(disc.named_parameters(), clipping_scale=2.0)
+    d_step, g_step, _ = make_gan_steps(gen, disc, mel, recon, opt_g, opt_d, lambda b: 1e-4,
+                                       lambda b: 1e-3, n_timesteps=GAN_STEPS, remat_rollout=True)
+    n_frames = DIST_LENGTH // 256 + 1
+    for side, step, train in (("d", d_step, False), ("g", g_step, True)):
+        draws = gen.draw_rollout(DIST_BATCH, n_frames, GAN_STEPS, step_generator(0, 3, dev),
+                                 train=train)
+        tracing.drain()
+        step(batch, draws)
+        torch.cuda.synchronize()
+        rows[f"gan_{side}_step"] = {**train_counts(),
+                                    "recomputed_steps": tracing.counter("solve.recomputed_steps")}
+    print("convnext train chain steps " + json.dumps({**rows, "card": card}))
+    blocks = 4 + 3 * 8 * GAN_STEPS  # the cond encoder, then 3 branches x 8 a step
+    want = {
+        "fm_step": {"train_fused_blocks": 28, "prelu_bwd_launches": 28},
+        "gan_d_step": {"fused_blocks": blocks},
+        "gan_g_step": {"train_fused_blocks": blocks + 3 * 8 * GAN_STEPS,
+                       "prelu_bwd_launches": blocks, "recomputed_steps": GAN_STEPS},
+    }
+    for name, expected in want.items():
+        got = rows[name]
+        if any(got[k] != v for k, v in expected.items()) or got["train_eager_blocks"] or \
+                got["eager_blocks"]:
+            raise AssertionError(f"{name} counted {got}, expected {expected} and none eager")
+    return rows
+
+
+def convnext_train_chain_phase(card: str) -> list:
+    """Phase 24: the train-form kernels built, checked at every shape and
+    timed at the FM cell's; one block's train form and the training steps
+    through them. Returns the four kernels' entries of the `kernels` line."""
+    build = cuda_build.build("convnext_chain_train")
+    print(f"build: {build.path.name} in {build.seconds:.2f} s")
+    for line in build.log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}")
+    tracing.drain()
+    shapes = []
+    for label, batch, frames, channels, f, conditioned, ragged in TRAIN_CHAIN_SHAPES:
+        shapes.append(check_train_chain_shape(label, batch, frames, channels, f, conditioned,
+                                              ragged, timed=batch == 256))
+        print("convnext train chain shape " + json.dumps(shapes[-1]))
+    for label, batch, frames, channels, f, conditioned, ragged in TRAIN_CHAIN_EDGES:
+        print("convnext train chain edge " + json.dumps(check_train_chain_shape(
+            label, batch, frames, channels, f, conditioned, ragged, extra_rows=2, timed=False)))
+    train_chain_block(card)
+    steps = train_chain_steps(card)
+    step = [s for s in shapes if s["label"].startswith("fm_")]
+    entries = []
+    for key in ("prelu_fwd", "prelu_bwd", "norm_film_bwd", "dwconv_bwd"):
+        entries.append({
+            "name": f"convnext_{key}", "route": "cuda",
+            "source": "flow2gan_tpu_torch/csrc/convnext_chain_train.cu",
+            "replaces": "none (XLA fused and differentiated the chain on the TPU: "
+                        "flow2gan_tpu/models/convnext.py:52-117)",
+            "launches_by_path": {k: v[f"{key}_launches"] for k, v in steps.items()},
+            "ms": sum(s[f"{key}_ms"] for s in step),
+            "plain_ms": sum(s[f"{key}_plain_ms"] for s in step),
+            "bound_ms": sum(s[f"{key}_bound_ms"] for s in step), "bound_by": "bytes",
+            "per": "one block of each branch and of the cond encoder of mel_24k_base at "
+                   "batch 256 x 1.5 s",
             "shapes": [{k: v for k, v in s.items() if k.startswith((key, "label"))}
                        for s in shapes],
         })
@@ -3000,6 +3360,8 @@ def main() -> int:
     clock.done("22_graph_replay")
     chain_kernels = convnext_chain_phase(card)
     clock.done("23_convnext_chain")
+    train_chain_kernels = convnext_train_chain_phase(card)
+    clock.done("24_convnext_train_chain")
     grads_card_vs_cpu(card, float64="report")
     clock.done("9_grads_card_vs_cpu_and_float64")
     discriminators_card_vs_cpu(card)
@@ -3074,7 +3436,7 @@ def main() -> int:
         "floor_ms": floor_ms,
         "per": "one mel_24k_base training step at batch 16 x 1.5 s: the sum over its three branch shapes",
         "shapes": adjoint_shapes + reference_batches["adjoint"],
-    }, *chain_kernels]}))
+    }, *chain_kernels, *train_chain_kernels]}))
     clock.done("21_kernels_line")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from torch import nn
 from flow2gan_tpu_torch import tracing
 from flow2gan_tpu_torch.models.norms import BiasNorm, ChannelScale, PReLU, at_least_float32
 from flow2gan_tpu_torch.ops import convnext_chain as chain
+from flow2gan_tpu_torch.ops import convnext_chain_train as train_chain
 from flow2gan_tpu_torch.ops import fused_istft as fused
 from flow2gan_tpu_torch.ops.stft import real_to_spec, spec_to_real, stft, stft_lens
 from flow2gan_tpu_torch.utils import make_valid_mask
@@ -108,9 +109,19 @@ def takes_chain(x: torch.Tensor, gates: Optional[torch.Tensor],
                 dtype: Optional[torch.dtype]) -> bool:
     """Whether a block runs its eval form through `ops/convnext_chain.py`:
     no limiter gates, no gradient, float32 compute on a float32 input. The
-    train form and a low-precision compute dtype take the eager chain."""
+    train form (`takes_train_chain`) and a low-precision compute dtype do
+    not."""
     return (gates is None and dtype is None and x.dtype == torch.float32
             and not torch.is_grad_enabled())
+
+
+def takes_train_chain(x: torch.Tensor, dtype: Optional[torch.dtype]) -> bool:
+    """Whether a block runs its train form through
+    `ops/convnext_chain_train.py`'s Function: grad enabled, float32 compute
+    on a float32 input on the card, gates given or not. A low-precision
+    compute dtype and the CPU take the eager chain and autograd."""
+    return (x.is_cuda and dtype is None and x.dtype == torch.float32
+            and torch.is_grad_enabled())
 
 
 class ConvNeXtBlock(nn.Module):
@@ -122,13 +133,18 @@ class ConvNeXtBlock(nn.Module):
     rate, it is projected at its native rate and the projection repeated:
     pointwise ops commute with a nearest repeat.
 
-    The eval form (`takes_chain`) runs the elementwise chain through
-    `ops/convnext_chain.py`, unless a forward hook watches one of the
-    block's modules: on the card three kernels around the GEMMs, each such
-    block counted by `convnext.fused_blocks`; on the CPU their plain
-    versions, the eager arithmetic. An eval-form block on the card that
-    takes the eager chain (grad enabled, bf16, hooked) counts
-    `convnext.eager_blocks`.
+    Unless a forward hook watches one of the block's modules:
+    - the eval form (`takes_chain`: no grad) runs the elementwise chain
+      through `ops/convnext_chain.py`: on the card three kernels around the
+      GEMMs, each such block counted by `convnext.fused_blocks`; on the CPU
+      their plain versions, the eager arithmetic;
+    - the train form on the card (`takes_train_chain`: grad enabled) runs
+      through `ops/convnext_chain_train.py`'s autograd Function, hand-written
+      kernels around the GEMMs forward and backward, each such block counted
+      by `convnext.train_fused_blocks`.
+    Any other block on the card takes the eager chain and counts
+    `convnext.eager_blocks` (no grad: bf16, hooked, gates given) or
+    `convnext.train_eager_blocks` (grad enabled: bf16, hooked).
     """
 
     def __init__(
@@ -167,8 +183,11 @@ class ConvNeXtBlock(nn.Module):
     ) -> torch.Tensor:
         if takes_chain(x, gates, self.dtype) and not self._watched():
             return self._chain(x, cond, time_embed, mask)
-        if gates is None and x.is_cuda:
-            tracing.count("convnext.eager_blocks")
+        if takes_train_chain(x, self.dtype) and not self._watched():
+            return self._train_chain(x, cond, time_embed, mask, gates)
+        if x.is_cuda:
+            tracing.count("convnext.train_eager_blocks" if torch.is_grad_enabled()
+                          else "convnext.eager_blocks")
         residual = x
         if mask is not None:
             x = x * mask.to(x.dtype)
@@ -207,6 +226,26 @@ class ConvNeXtBlock(nn.Module):
         h = chain.prelu_(self.pwconv1(y), self.act.alpha)
         scale = None if self.residual_scale is None else self.residual_scale.scale
         return chain.linear_residual(h, self.pwconv2.weight, self.pwconv2.bias, x, scale)
+
+    def _train_chain(self, x: torch.Tensor, cond: Optional[torch.Tensor],
+                     time_embed: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+                     gates: Optional[torch.Tensor]) -> torch.Tensor:
+        """The train form through `ops/convnext_chain_train.py`'s Function:
+        its kernels on the card, their plain versions on the CPU. The
+        limiters act on the log-scale and the residual scale before they
+        enter it, so their flips stay in autograd."""
+        if x.is_cuda:
+            tracing.count("convnext.train_fused_blocks")
+        c = te = None
+        if self.cond_proj is not None:
+            c, te = self.cond_proj(cond), self.time_embed_proj(time_embed)
+        scale = None if self.residual_scale is None else self.residual_scale.limited_scale(gates)
+        # the kernels read whole rows (see `_chain`)
+        return train_chain.TrainChain.apply(
+            x.contiguous(), mask, self.dwconv.weight, self.dwconv.bias, self.norm.bias,
+            self.norm.limited_log_scale(gates), c, te, self.pwconv1.weight, self.pwconv1.bias,
+            self.act.alpha, self.pwconv2.weight, self.pwconv2.bias, scale,
+            self.cond_upsample_factor)
 
 
 class CondEncoder(nn.Module):

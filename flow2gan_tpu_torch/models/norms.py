@@ -78,11 +78,15 @@ class BiasNorm(nn.Module):
         self.log_scale = nn.Parameter(torch.tensor(1.0))
         self.gate_index = 0
 
+    def limited_log_scale(self, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """log_scale, through its limiter where `gates` are given."""
+        if gates is None:
+            return self.log_scale
+        return limit_param_value(self.log_scale, self.log_scale_min, self.log_scale_max,
+                                 gates[self.gate_index])
+
     def forward(self, x: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-        log_scale = self.log_scale
-        if gates is not None:
-            log_scale = limit_param_value(log_scale, self.log_scale_min, self.log_scale_max,
-                                          gates[self.gate_index])
+        log_scale = self.limited_log_scale(gates)
         d = at_least_float32(x - self.bias)
         scales = torch.rsqrt((d * d).mean(dim=-1, keepdim=True)) * torch.exp(log_scale)
         return x * scales.to(x.dtype)
@@ -96,11 +100,14 @@ class ChannelScale(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.gate_index = 0
 
+    def limited_scale(self, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """scale, through its limiter where `gates` are given."""
+        if gates is None:
+            return self.scale
+        return limit_param_value(self.scale, 0.5, 1.0, gates[self.gate_index])
+
     def forward(self, x: torch.Tensor, gates: Optional[torch.Tensor] = None) -> torch.Tensor:
-        scale = self.scale
-        if gates is not None:
-            scale = limit_param_value(scale, 0.5, 1.0, gates[self.gate_index])
-        return x * scale.to(x.dtype)
+        return x * self.limited_scale(gates).to(x.dtype)
 
 
 LIMITERS = (BiasNorm, ChannelScale)

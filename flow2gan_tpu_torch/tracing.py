@@ -49,10 +49,18 @@ profiler), `infer.graph_captures`, `infer.graph_replays` and
 `gan.d_steps` and `gan.g_steps` (GAN steps taken),
 `solve.recomputed_steps` (Euler steps that `solve(..., remat=True)`
 recomputes in backward), `convnext.fused_blocks` and `convnext.eager_blocks`
-(ConvNeXt blocks on the card in eval form that ran the chain's kernels, or
-the eager chain: grad enabled or bf16), and `convnext.norm_film_launches`,
-`convnext.prelu_launches` and `convnext.residual_launches` (the chain's
-kernels the host launched; `ops/convnext_chain.py`).
+(ConvNeXt blocks on the card in eval form, no grad, that ran the chain's
+kernels, or the eager chain: bf16, hooked or gated),
+`convnext.train_fused_blocks` and `convnext.train_eager_blocks` (blocks on
+the card in train form, grad enabled, that ran through
+`ops/convnext_chain_train.py`'s Function, or the eager chain: bf16 or
+hooked; a block that checkpointing recomputes counts again),
+`convnext.norm_film_launches`, `convnext.prelu_launches` and
+`convnext.residual_launches` (the chain's kernels the host launched;
+`ops/convnext_chain.py`), and `convnext.prelu_fwd_launches`,
+`convnext.prelu_bwd_launches`, `convnext.norm_film_bwd_launches` and
+`convnext.dwconv_bwd_launches` (the train form's;
+`ops/convnext_chain_train.py`).
 """
 
 from __future__ import annotations
